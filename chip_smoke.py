@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``src/repro_torch``) on one card.
 
-Drives the kernel compiler's launch path — KernelBuilder DSL -> IR ->
-PassManager -> WorkGroupPlan -> the hand-written ``cuda`` work-group
-target -> Context / Program / Kernel launch — and checks every result.
-Each phase prints one JSON line; any mismatch, build error or launch
-error raises and the script exits non-zero.
+Drives the port's two paths and checks every result: the kernel
+compiler's launch path — KernelBuilder DSL -> IR -> PassManager ->
+WorkGroupPlan -> the hand-written ``cuda`` work-group target -> Context /
+Program / Kernel launch — and the serving path — ``repro_torch.launch.
+serve`` -> ``ServingEngine`` -> ``TorchExecutor`` -> the smollm-135m model
+at its full published width, through the hand-written CUDA ``rmsnorm``
+and ``decode_attention`` kernels.  Each phase prints one JSON line; any
+mismatch, build error or launch error raises and the script exits
+non-zero.
 
   1. device: the card, torch/CUDA versions, and one parallel ``nvcc``
-     build of every kernel the run launches (seconds per kernel);
+     build of every kernel the run launches, the work-group kernels and
+     the model kernels in one wave (seconds per kernel);
   2. quickstart (main path): the paper's Fig. 1 dot product at 1<<22
      work-items through Context -> Program -> Kernel -> launch, against
      numpy (``rtol=1e-5, atol=2e-6``, the quickstart's tolerance) and
@@ -25,7 +30,36 @@ error raises and the script exits non-zero.
      launches, L2 flushed before each) beside the plain version's time
      (median of 3), the bound and, where one PyTorch call computes the
      same function, that call's time;
-  6. the kernels line, then the card's name and power limit, then the
+  6. serving (main path): ``repro_torch.launch.serve`` at full width
+     (30 layers, d 576, 9/3 heads, vocab 49152; random weights from seed
+     0) with 8 slots and a 2048-token cache serves 16 requests (prompts
+     of 32-512 tokens, 32-128 new tokens each, one arrival every 2
+     scheduler steps): requests and tokens served, wall seconds, tok/s,
+     the median decode-step time and both model kernels' launch counts
+     (each must be > 0).  Four of the requests are re-run alone through
+     an engine of the same width and must give identical streams; one
+     prefill and 8 decode steps of 8 rows give logits that must agree
+     with the same forward run through the kernels' plain versions:
+     in bfloat16, as served, within ``atol=0.125`` (two bfloat16 ulps
+     at the logits' size); in float32 with the same weights within
+     ``atol=1e-3``, a limit that the same steps with decode attention
+     given one key fewer or one more must fail.  Five decode steps of
+     those 8 rows are profiled
+     (``torch.profiler``): device busy time and idle share per step, the
+     kernel launches per step and the kernels that take the most time;
+  7. the model kernels at the serving path's shapes, each against its
+     plain version on the same CUDA tensors (rmsnorm: rows 8 and 512, d
+     576, float32 within ``rtol=1e-5, atol=1e-6``, bfloat16 within one
+     bfloat16 ulp; decode attention: 8 x 9 heads over 3 KV heads of 64,
+     a 2048-token bfloat16 cache, lengths from the seed with a 0 and a
+     2048, within one bfloat16 ulp, ``rtol=2**-7, atol=1e-4``, and zeros
+     for the empty row; every row must fail that tolerance against the
+     plain version given its length minus or plus one), then timed like
+     phase 5 beside their plain versions, their bounds and the PyTorch
+     call that computes the same function (``F.rms_norm``;
+     ``scaled_dot_product_attention`` with the length mask and
+     ``enable_gqa=True``), which the port never calls;
+  8. the kernels line, then the card's name and power limit, then the
      result line.
 
 Launch counts are set to 0 just before each main-path phase and read
@@ -35,6 +69,9 @@ do not count.
   python3 chip_smoke.py          # from the repository root, one card
 """
 
+import contextlib
+import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -49,6 +86,32 @@ PEAK_FP32_FLOPS = 67e12      # H100 SXM, FP32 on CUDA cores (data sheet)
 PEAK_HBM_BYTES = 3.35e12     # H100 SXM HBM3 bytes/s (data sheet)
 KERNEL_SOURCE = "src/repro_torch/core/targets/cuda_target.py"
 REPLACES = "src/repro/core/targets/pallas_target.py:36"
+MODEL_KERNELS = {   # name -> (source, the TPU kernel it replaces)
+    "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:31"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:68"),
+}
+
+# phase 6: the serving run (through repro_torch.launch.serve)
+SERVE = {"arch": "smollm-135m", "batch_slots": 8, "max_seq": 2048,
+         "requests": 16, "prompt_len": (32, 512), "new_tokens": (32, 128),
+         "arrival_every": 2, "seed": 0}
+RERUN_ALONE = 4             # requests re-run alone, streams must be equal
+LOGIT_STEPS = 8             # decode steps of the kernels-vs-plain check
+# The served logits are bfloat16 (the tied head's product) and reach |9.4|
+# at these weights, where one bfloat16 ulp is 0.0625: the largest
+# difference the kernels have shown from their plain versions.  The limit
+# is two such ulps, absolute.  Rounding flips carried through 30 bfloat16
+# layers are as large as the effect of one key more or fewer in decode
+# attention, so that fault is looked for in float32 (same weights, the
+# cache still bfloat16), where the two sides differ by float32 rounding
+# order only and one key moves the logits by about 1e-2 (PERF.md).
+LOGIT_ATOL = 2 * 0.0625
+LOGIT_ATOL_F32 = 1e-3
+# decode attention, bfloat16 q: both sides read the same cache values,
+# accumulate in float32 and round once, so one bfloat16 ulp
+DEC_RTOL, DEC_ATOL = 2.0 ** -7, 1e-4
 
 # phase 5: real problem sizes and the configuration each runs with
 REAL = [
@@ -83,6 +146,282 @@ def bound(flops, nbytes):
             "operations" if t_ops > t_bytes else "bytes")
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """Run the model with each kernel's plain version in its wrapper's
+    place (for the comparison only: the plain versions count no
+    launches)."""
+    from repro_torch.kernels import decode_attention as da, rmsnorm as rn
+    saved = rn.rmsnorm, da.decode_attention
+    rn.rmsnorm, da.decode_attention = rn.rmsnorm_plain, \
+        da.decode_attention_plain
+    try:
+        yield
+    finally:
+        rn.rmsnorm, da.decode_attention = saved
+
+
+@contextlib.contextmanager
+def decode_lengths_shifted(shift):
+    """Run the model with a decode attention that attends over ``shift``
+    keys more than it is given: with -1 it drops the key just written,
+    the fault of attending over ``lengths`` where the model asks for
+    ``lengths + 1`` (for the check that the logits' limit sees it)."""
+    from repro_torch.kernels import decode_attention as da
+    saved = da.decode_attention
+    da.decode_attention = lambda q, k, v, lengths: saved(q, k, v,
+                                                         lengths + shift)
+    try:
+        yield
+    finally:
+        da.decode_attention = saved
+
+
+def profile_decode(torch, forward, init_caches, cfg, params, toks, max_seq,
+                   dev, steps=5):
+    """Where a decode step's time goes: ``steps`` decode steps of the
+    8-row batch under ``torch.profiler``, the device's busy time (the sum
+    of the kernels' own device times) against the wall time, the kernel
+    launches per step, and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        caches = init_caches(cfg, toks.shape[0], max_seq, device=dev)
+        lg, _, caches = forward(params, toks, cfg, caches=caches,
+                                mode="prefill")
+        for _ in range(2):                      # warm up
+            lg, _, caches = forward(params, lg[:, -1].argmax(-1)[:, None],
+                                    cfg, caches=caches, mode="decode")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                lg, _, caches = forward(params,
+                                        lg[:, -1].argmax(-1)[:, None], cfg,
+                                        caches=caches, mode="decode")
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+            "device_busy_ms_per_step": busy_us / steps / 1e3,
+            "device_idle_share": 1.0 - busy_us / wall_us,
+            "kernel_launches_per_step": sum(e.count for e in kernels)
+            / steps,
+            "top_kernels_ms_per_step": {
+                e.key[:60]: e.self_device_time_total / steps / 1e3
+                for e in top}}
+
+
+def serve_phase(torch, np, time_ms):
+    """Phases 6 and 7: the serving path at full width, then the model
+    kernels against their plain versions, timed.  Returns the kernels
+    line's entries of the two kernels."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import forward, init_caches
+    from repro_torch.serving import Request, ServingEngine
+
+    # -- 6. the serving run, with the launch counts of its kernels
+    cfg = configs.get_config(SERVE["arch"])
+    eng = serve.make_engine(cfg, SERVE["seed"], SERVE["batch_slots"],
+                            SERVE["max_seq"])
+    reqs = serve.make_requests(cfg, np.random.default_rng(SERVE["seed"]),
+                               SERVE["requests"], SERVE["prompt_len"],
+                               SERVE["new_tokens"])
+    for k in KERNELS:
+        k.launches = 0
+    run = serve.serve(eng, reqs, SERVE["arrival_every"])
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in KERNELS}
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        serve.report(run)
+    done = run["done"]
+    assert len(done) == len(reqs) and all(r.done for r in reqs), \
+        [(r.id, r.state, r.error) for r in reqs]
+    for r in reqs:
+        assert len(r.out_tokens) == r.max_new_tokens, r.id
+        assert all(0 <= t < cfg.vocab for t in r.out_tokens), r.id
+    assert all(n > 0 for n in launches.values()), \
+        ("a model kernel was not launched on the serving path", launches)
+    dev = eng.context.devices[0].torch_device
+    assert dev.type == "cuda", dev
+
+    # the same requests alone, through an engine of the same width
+    alone = ServingEngine(cfg, eng.params, batch_slots=eng.B,
+                          max_seq=eng.S, context=eng.context)
+    for r in reqs[:RERUN_ALONE]:
+        again = Request(prompt=r.prompt.copy(),
+                        max_new_tokens=r.max_new_tokens)
+        alone.generate([again])
+        assert again.out_tokens == r.out_tokens, \
+            ("stream changed when served alone", r.id)
+
+    # logits: kernels against their plain versions, one prefill + decode
+    # steps, in the served bfloat16 and in float32 (same weights); in
+    # float32 the limit must also fail decode attention given one key
+    # fewer or one more than the model asks for
+    rng = np.random.default_rng(1)
+    toks0 = torch.tensor(rng.integers(0, cfg.vocab, (8, 64)), device=dev)
+    params = alone._exec.params
+
+    def logits_run(mcfg, mparams, feed=None):
+        out, fed = [], []
+        with torch.inference_mode():
+            caches = init_caches(mcfg, 8, eng.S, device=dev)
+            lg, _, caches = forward(mparams, toks0, mcfg, caches=caches,
+                                    mode="prefill")
+            out.append(lg[:, -1].float())
+            for i in range(LOGIT_STEPS):
+                nxt = lg[:, -1].argmax(-1)[:, None] if feed is None \
+                    else feed[i]
+                fed.append(nxt)
+                lg, _, caches = forward(mparams, nxt, mcfg, caches=caches,
+                                        mode="decode")
+                out.append(lg[:, -1].float())
+        return out, fed
+
+    def logits_check(mcfg, mparams):
+        """Per step, the largest |logit difference| from the plain
+        versions' run: of the kernels, and of the kernels with decode
+        attention's lengths one short and one long."""
+        got, fed = logits_run(mcfg, mparams)
+        with plain_kernels():
+            want, _ = logits_run(mcfg, mparams, fed)
+        runs = {"kernels": got}
+        for name, shift in (("short_by_one", -1), ("long_by_one", 1)):
+            with decode_lengths_shifted(shift):
+                runs[name], _ = logits_run(mcfg, mparams, fed)
+        torch.cuda.synchronize()
+        res = {name: [float((a - b).abs().max()) for a, b in zip(xs, want)]
+               for name, xs in runs.items()}
+        res["max_abs_logit"] = max(float(b.abs().max()) for b in want)
+        res["argmax_agree"] = min(
+            float((a.argmax(-1) == b.argmax(-1)).float().mean())
+            for a, b in zip(got, want))
+        return res
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    logits = {"bfloat16": logits_check(cfg, params),
+              "float32": logits_check(cfg32, eng.params)}
+    limits = {"bfloat16": LOGIT_ATOL, "float32": LOGIT_ATOL_F32}
+    summary = log.getvalue().splitlines()[:4]
+    prof = profile_decode(torch, forward, init_caches, cfg, params, toks0,
+                          eng.S, dev)
+    emit(6, path="repro_torch.launch.serve", serve=SERVE,
+         config={"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                 "n_heads": cfg.n_heads, "n_kv": cfg.n_kv, "head_dim": cfg.hd,
+                 "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype},
+         requests=len(done), tokens=run["tokens"], wall_s=run["wall_s"],
+         tok_s=run["tok_s"], decode_steps=run["decode_steps"],
+         decode_step_ms_median=run["decode_step_ms_median"],
+         prefill_calls=eng.compile_stats["prefill_calls"],
+         launches=launches, summary=summary,
+         rerun_alone_identical=RERUN_ALONE,
+         logits_vs_plain=logits, logits_atol=limits, decode_profile=prof)
+    for dt, res in logits.items():
+        assert max(res["kernels"]) <= limits[dt], \
+            ("logits, kernels vs plain", dt, res["kernels"], limits[dt])
+    for fault in ("short_by_one", "long_by_one"):
+        assert max(logits["float32"][fault]) > LOGIT_ATOL_F32, \
+            ("the float32 logits' limit does not see decode attention "
+             "with a length off by one", fault, logits["float32"][fault])
+
+    # -- 7. each model kernel against its plain version, then timed
+    entries = []
+    d = cfg.d_model
+    rms_err, rms_cases = 0.0, []
+    for rows, xdt, wdt in ((8, torch.bfloat16, torch.bfloat16),
+                           (8, torch.bfloat16, torch.float32),
+                           (8, torch.float32, torch.float32),
+                           (512, torch.bfloat16, torch.bfloat16),
+                           (512, torch.float32, torch.float32)):
+        x = (torch.tensor(rng.standard_normal((rows, d)), device=dev) * 3) \
+            .to(xdt)
+        w = torch.tensor(rng.standard_normal(d), device=dev).to(wdt)
+        a, b = rmsnorm(x, w), rmsnorm_plain(x, w)
+        if xdt == torch.float32:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        else:
+            torch.testing.assert_close(a.float(), b.float(), rtol=2.0 ** -7,
+                                       atol=0)
+        rms_err = max(rms_err, float((a.float() - b.float()).abs().max()))
+        nbytes = rows * d * 2 * x.element_size() + d * w.element_size()
+        ms = time_ms(lambda: rmsnorm(x, w))
+        plain_ms = time_ms(lambda: rmsnorm_plain(x, w), reps=3, warmup=1)
+        wl = w.to(xdt)
+        lib_ms = time_ms(lambda: F.rms_norm(x, (d,), wl, 1e-6))
+        bms = nbytes / PEAK_HBM_BYTES * 1e3
+        rms_cases.append({"rows": rows, "d": d, "x": str(xdt), "w": str(wdt),
+                          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                          "bound_ms": bms, "fraction_of_bound": bms / ms})
+    emit(7, kernel="rmsnorm", cases=rms_cases, max_abs_err_vs_plain=rms_err,
+         launches=launches["rmsnorm"])
+    main_case = rms_cases[0]      # the decode step's shape and dtypes
+    entries.append({"name": "rmsnorm", "source": MODEL_KERNELS["rmsnorm"][0],
+                    "replaces": MODEL_KERNELS["rmsnorm"][1],
+                    "launches": launches["rmsnorm"], "max_abs_err": rms_err,
+                    "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+                    "bound_ms": main_case["bound_ms"], "bound_by": "bytes",
+                    "library_ms": main_case["library_ms"]})
+
+    B, H, Hkv, D, S = eng.B, cfg.n_heads, cfg.n_kv, cfg.hd, eng.S
+    q = torch.tensor(rng.standard_normal((B, H, D)), device=dev) \
+        .to(torch.bfloat16)
+    kc = torch.tensor(rng.standard_normal((B, Hkv, S, D)), device=dev) \
+        .to(torch.bfloat16)
+    vc = torch.tensor(rng.standard_normal((B, Hkv, S, D)), device=dev) \
+        .to(torch.bfloat16)
+    lens = rng.integers(0, S + 1, B).astype(np.int32)
+    lens[0], lens[1] = 0, S
+    lengths = torch.tensor(lens, device=dev)
+    a = decode_attention(q, kc, vc, lengths)
+    b = decode_attention_plain(q, kc, vc, lengths)
+    assert torch.all(a[0] == 0), "the row with no valid key is not zeros"
+    torch.testing.assert_close(a.float(), b.float(), atol=DEC_ATOL,
+                               rtol=DEC_RTOL)
+    dec_err = float((a.float() - b.float()).abs().max())
+    # the tolerance sees a length off by one, in every row it can
+    for shift in (-1, 1):
+        moved = (lengths + shift).clamp(0, S)
+        other = decode_attention_plain(q, kc, vc, moved).float()
+        for r in range(B):
+            assert int(moved[r]) == int(lens[r]) or not torch.allclose(
+                a[r].float(), other[r], rtol=DEC_RTOL, atol=DEC_ATOL), \
+                ("decode attention tolerance misses a length off by one",
+                 r, int(lens[r]), shift)
+    ms = time_ms(lambda: decode_attention(q, kc, vc, lengths))
+    plain_ms = time_ms(lambda: decode_attention_plain(q, kc, vc, lengths),
+                       reps=3, warmup=1)
+    mask = (torch.arange(S, device=dev)[None, :]
+            < lengths[:, None].long())[:, None, None, :]
+    q4 = q[:, :, None, :]
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, kc, vc, attn_mask=mask, enable_gqa=True))
+    nbytes = 2 * Hkv * D * 2 * int(lens.sum()) + 2 * B * H * D * 2 + 4 * B
+    bms = nbytes / PEAK_HBM_BYTES * 1e3
+    emit(7, kernel="decode_attention", B=B, H=H, Hkv=Hkv, D=D, S=S,
+         lengths=lens.tolist(), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+         bound_ms=bms, fraction_of_bound=bms / ms, blocks=B * Hkv,
+         max_abs_err_vs_plain=dec_err, launches=launches["decode_attention"])
+    entries.append({"name": "decode_attention",
+                    "source": MODEL_KERNELS["decode_attention"][0],
+                    "replaces": MODEL_KERNELS["decode_attention"][1],
+                    "launches": launches["decode_attention"],
+                    "max_abs_err": dec_err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bms, "bound_by": "bytes", "library_ms": lib_ms})
+    return entries
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -98,7 +437,8 @@ def main() -> int:
     from repro_torch.core import KernelBuilder
     from repro_torch.core.cases import CASES, build_dot_product, builder
     from repro_torch.core.interp import run_ndrange
-    from repro_torch.core.targets.cuda_target import build_many
+    from repro_torch.core.nvcc import build_parallel
+    from repro_torch.kernels import KERNELS
     from repro_torch.runtime import Context
     from repro_torch.suite import SUITE
 
@@ -136,15 +476,18 @@ def main() -> int:
                 cuda_dev, sk.launch_dims(shape, params)[1]))
     progs = {b.prog.digest: b.prog for b in binaries}
     t0 = time.perf_counter()
-    secs = build_many(progs.values())
+    secs = build_parallel([p.nvcc_job() for p in progs.values()]
+                          + [k.nvcc_job() for k in KERNELS])
     props = torch.cuda.get_device_properties(0)
     emit(1, gpu=smi, torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0),
          sms=props.multi_processor_count,
          smem_optin=getattr(props, "shared_memory_per_block_optin", None),
          kernels=len(progs), build_wall_s=time.perf_counter() - t0,
-         nvcc_s={f"{p.wg.fn.name}@{p.lsz[:p.wg.fn.ndim]}": secs.get(d)
-                 for d, p in progs.items()})
+         model_kernels=len(KERNELS),
+         nvcc_s={**{f"{p.wg.fn.name}@{p.lsz[:p.wg.fn.ndim]}":
+                    secs.get(p.nvcc_job().out) for p in progs.values()},
+                 **{k.name: secs.get(k.lib_path) for k in KERNELS}})
 
     def reset_counts():
         for p in progs.values():
@@ -329,10 +672,14 @@ def main() -> int:
         torch.cuda.empty_cache()
     assert dot_launches > 0
 
-    # -- 6. kernels line, card, result ---------------------------------------------
+    # -- 6. serving at full width (main path) ----------------------------------------
+    entries += serve_phase(torch, np, time_ms)
+
+    # -- 8. kernels line, card, result ---------------------------------------------
     print(json.dumps({"kernels": [
-        {"name": e["name"], "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES, "launches": e["launches"],
+        {"name": e["name"], "route": "cuda",
+         "source": e.get("source", KERNEL_SOURCE),
+         "replaces": e.get("replaces", REPLACES), "launches": e["launches"],
          "max_abs_err": e["max_abs_err"], "ms": e["ms"],
          "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
          "bound_by": e["bound_by"], "library_ms": e["library_ms"],

@@ -52,11 +52,6 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Iterable, List, Sequence, Tuple
@@ -66,16 +61,11 @@ import torch
 
 from .. import ir
 from ..cache import canonical_value_names
-from ..errors import BuildError, InvalidArgError, ReproError, register_error
+from ..errors import InvalidArgError, ReproError, register_error
 from ..ir import CondBranch, Jump, Return, Value
+from ..nvcc import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, NvccJob, build_parallel
 from .vector import WGProgram
 
-_PKG = Path(__file__).resolve().parents[2]
-CSRC_DIR = _PKG / "csrc"
-BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-w")
 MAX_THREADS = 1024          # CUDA's limit on threads per block
 _STATIC_SMEM = 48 * 1024    # above this, dynamic shared memory needs opt-in
 
@@ -490,75 +480,20 @@ def emit_cuda(prog: "CudaWGProgram") -> Tuple[str, int, _Sig]:
 # Building and loading
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise BuildError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                     "/usr/local/cuda/bin); the cuda target builds its "
-                     "kernels on the machine with the card")
-
-
 def _lib_path(digest: str) -> Path:
     return BUILD_DIR / f"wg_{digest[:40]}.so"
 
 
 def build_many(progs: Iterable["CudaWGProgram"]) -> Dict[str, float]:
     """Build every program whose library is not in ``build/repro_torch/``
-    yet: one ``nvcc`` per source, all started together.  Returns the
+    yet: one ``nvcc`` per source, all started together
+    (:func:`~repro_torch.core.nvcc.build_parallel`).  Returns the
     wall-clock build seconds by digest; raises
     :class:`~repro_torch.core.errors.BuildError` with the compiler's
     output if any build fails."""
-    pending: Dict[str, CudaWGProgram] = {}
-    for p in progs:
-        if not _lib_path(p.digest).exists():
-            pending.setdefault(p.digest, p)
-    if not pending:
-        return {}
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    try:
-        for d, p in pending.items():
-            cu = BUILD_DIR / f"wg_{d[:40]}.cu"
-            cu.write_text(p.source)
-            tmp = Path(tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")[1])
-            log = open(tmp.with_suffix(".log"), "w+")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
-                   str(cu)]
-            jobs.append([d, tmp, log, time.perf_counter(),
-                         subprocess.Popen(cmd, stdout=log,
-                                          stderr=subprocess.STDOUT), None])
-        while any(j[5] is None for j in jobs):
-            for j in jobs:
-                if j[5] is None and j[4].poll() is not None:
-                    j[5] = time.perf_counter() - j[3]
-            time.sleep(0.02)
-    finally:
-        for j in jobs:
-            if j[4].poll() is None:
-                j[4].kill()
-                j[4].wait()
-    times, errors = {}, []
-    for d, tmp, log, _, proc, secs in jobs:
-        log.seek(0)
-        text = log.read()
-        log.close()
-        os.remove(log.name)
-        if proc.returncode != 0:
-            errors.append(f"--- {pending[d].wg.fn.name} ({d[:12]}): "
-                          f"nvcc exit {proc.returncode}\n{text}")
-            tmp.unlink(missing_ok=True)
-            continue
-        os.replace(tmp, _lib_path(d))
-        times[d] = secs
-    if errors:
-        log = "\n".join(errors)
-        raise BuildError(f"{len(errors)} cuda kernel build(s) failed:\n"
-                         f"{log[:4000]}", build_log=log)
-    return times
+    progs = {p.digest: p for p in progs}
+    secs = build_parallel(p.nvcc_job() for p in progs.values())
+    return {d: secs[_lib_path(d)] for d in progs if _lib_path(d) in secs}
 
 
 @dataclass(frozen=True)
@@ -611,6 +546,11 @@ class CudaWGProgram(WGProgram):
 
     def __setstate__(self, state):
         self.__dict__.update(state)
+
+    def nvcc_job(self) -> NvccJob:
+        """The build of this program's library (for a parallel wave)."""
+        return NvccJob(f"{self.wg.fn.name} ({self.digest[:12]})",
+                       self.source, _lib_path(self.digest))
 
     def _load(self):
         if self._fn is None:

@@ -1,0 +1,1 @@
+"""Launch tooling of the port: the serving entry point (:mod:`.serve`)."""

@@ -16,7 +16,10 @@ vector and basic devices only.
 
 Device queries (global memory size, max work-group size, …) come from
 ``torch.cuda.get_device_properties`` for a CUDA device.  Every device
-owns a :class:`~repro_torch.core.cache.CompilationCache`.
+owns a :class:`~repro_torch.core.cache.CompilationCache` and an
+``allocator``, a :class:`~repro_torch.runtime.bufalloc.Bufalloc` arena
+over its global memory size (the book-keeping the serving engine pages
+its KV cache from).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from ..core.api import CompiledKernel, _compile_kernel
 from ..core.cache import CompilationCache
 from ..core.errors import InvalidArgError, ReproError, register_error
 from ..core.ir import Function
+from .bufalloc import Bufalloc
 
 
 @register_error
@@ -71,6 +75,7 @@ class Device:
         # per-device compilation cache; the disk tier activates when
         # REPRO_KERNEL_CACHE_DIR is set
         self.compile_cache = CompilationCache.from_env()
+        self.allocator = Bufalloc(info.global_mem_size, greedy=True)
 
     def compile(self, build: Callable[[], Function],
                 local_size: Sequence[int], **opts) -> CompiledKernel:

@@ -26,6 +26,7 @@ from repro_torch.core.api import _compile_kernel
 from repro_torch.core.cases import CASES, builder
 from repro_torch.core.errors import BuildError
 from repro_torch.core.examples import build_condbar, build_dct, build_reduce2
+from repro_torch.core import nvcc
 from repro_torch.core.targets import cuda_target
 from repro_torch.core.targets.cuda_target import CudaWGProgram, build_many
 from repro_torch.runtime import Context, DeviceNotFoundError, Platform
@@ -185,7 +186,7 @@ def test_platform_without_cuda_raises(monkeypatch):
 
 def test_missing_nvcc_is_a_build_error(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_target, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(cuda_target.shutil, "which", lambda name: None)
+    monkeypatch.setattr(nvcc.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     if os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("nvcc is installed at its default path")
@@ -204,7 +205,7 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     try:
-        cuda_target._nvcc()
+        nvcc.find_nvcc()
     except BuildError:
         pytest.skip("needs nvcc")
     ctx = Context()
