@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``src/repro_torch``) on one card.
 
-Drives the port's two paths and checks every result: the kernel
+Drives the port's three paths and checks every result: the kernel
 compiler's launch path — KernelBuilder DSL -> IR -> PassManager ->
 WorkGroupPlan -> the hand-written ``cuda`` work-group target -> Context /
-Program / Kernel launch — and the serving path — ``repro_torch.launch.
+Program / Kernel launch — and two serving paths — ``repro_torch.launch.
 serve`` -> ``ServingEngine`` -> ``TorchExecutor`` -> the smollm-135m model
 at its full published width, through the hand-written CUDA ``rmsnorm``
-and ``decode_attention`` kernels.  Each phase prints one JSON line; any
-mismatch, build error or launch error raises and the script exits
-non-zero.
+and ``decode_attention`` kernels, and the mamba2-780m model at its full
+published width, through ``rmsnorm`` and the hand-written CUDA
+``ssd_scan``.  Each phase prints one JSON line; any mismatch, build error
+or launch error raises and the script exits non-zero.
 
   1. device: the card, torch/CUDA versions, and one parallel ``nvcc``
      build of every kernel the run launches, the work-group kernels and
@@ -59,7 +60,30 @@ non-zero.
      call that computes the same function (``F.rms_norm``;
      ``scaled_dot_product_attention`` with the length mask and
      ``enable_gqa=True``), which the port never calls;
-  8. the kernels line, then the card's name and power limit, then the
+  8. serving mamba2-780m (main path): ``repro_torch.launch.serve`` at
+     full width (48 layers, d 1536, 48 SSD heads of 64, state 128, vocab
+     50280; random weights from seed 0) with 8 slots and a 2048-token
+     limit serves 8 requests (prompts of 32-512 tokens, each prefilled at
+     its exact length, 32-64 new tokens, one arrival every 2 steps):
+     requests and tokens served, wall seconds, tok/s, the median
+     decode-step time and the ``ssd_scan`` and ``rmsnorm`` launch counts
+     (each must be > 0).  Two requests re-run alone must give identical
+     streams; one 64-token prefill and 8 decode steps of 8 rows give
+     logits that must agree with the plain versions' run: in bfloat16,
+     as served, within four bfloat16 ulps at the logits' largest size; in
+     float32 with the same weights within ``atol=1e-3``, a limit that the
+     plain run with its prefill state taken one token short must fail.
+     One prefill and 5 decode steps are profiled as in phase 6;
+  9. ``ssd_scan`` against its plain version on the same CUDA tensors, at
+     the served prefill's shape (1 x 512 tokens x 48 heads x 64, state
+     128, one group), at (4, 2048) of the same, and with 4 groups and a
+     ragged s (1000), in bfloat16 and float32: y and the final state
+     within ``SSD_F32_TOL`` (float32) and one bfloat16 ulp for a
+     bfloat16 y, every case failing the state tolerance against the plain
+     version given s - 1 steps; then timed like phase 5 beside the plain
+     version's time and the bound (no single PyTorch call computes the
+     scan, so no library time);
+ 10. the kernels line, then the card's name and power limit, then the
      result line.
 
 Launch counts are set to 0 just before each main-path phase and read
@@ -73,6 +97,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -83,6 +108,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 PEAK_FP32_FLOPS = 67e12      # H100 SXM, FP32 on CUDA cores (data sheet)
+PEAK_BF16_FLOPS = 989e12     # H100 SXM, dense bf16 on tensor cores (data sheet)
 PEAK_HBM_BYTES = 3.35e12     # H100 SXM HBM3 bytes/s (data sheet)
 KERNEL_SOURCE = "src/repro_torch/core/targets/cuda_target.py"
 REPLACES = "src/repro/core/targets/pallas_target.py:36"
@@ -91,6 +117,8 @@ MODEL_KERNELS = {   # name -> (source, the TPU kernel it replaces)
                 "src/repro/kernels/rmsnorm.py:31"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:68"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:74"),
 }
 
 # phase 6: the serving run (through repro_torch.launch.serve)
@@ -112,6 +140,34 @@ LOGIT_ATOL_F32 = 1e-3
 # decode attention, bfloat16 q: both sides read the same cache values,
 # accumulate in float32 and round once, so one bfloat16 ulp
 DEC_RTOL, DEC_ATOL = 2.0 ** -7, 1e-4
+
+# phase 8: serving mamba2-780m (through repro_torch.launch.serve)
+SSM_SERVE = {"arch": "mamba2-780m", "batch_slots": 8, "max_seq": 2048,
+             "requests": 8, "prompt_len": (32, 512), "new_tokens": (32, 64),
+             "arrival_every": 2, "seed": 0}
+SSM_RERUN_ALONE = 2
+# The served logits are bfloat16 and reach |5.1| at these weights, where
+# one bfloat16 ulp is 2**-5.  After 48 bfloat16 layers the kernels' run
+# differs from the plain versions' by up to 0.0859, 2.75 such ulps (the
+# same in every run on the card, PERF.md; smollm's 30 layers show 1 ulp):
+# one-ulp flips of the scan's and the norm's outputs, carried through
+# the stack.  The limit is 4 ulps at the logits' largest size; it claims
+# to see no fault.  The float32 run (same weights) does that: there the
+# two sides differ by summation order only (7.2e-6), and a prefill state
+# one token short moves the decode steps' logits by 0.445-0.555
+SSM_LOGIT_ULPS_BF16 = 4
+SSM_LOGIT_ATOL_F32 = 1e-3
+# phase 9: ssd_scan cases, (b, s, h, p, g, n, chunk): the served prefill's
+# shape first (its time is the kernels line's), then a long batch, then
+# groups with a ragged s.  Both sides compute in float32 and differ in
+# summation order and exp only: the float32 state and y within 1e-5 (the
+# largest errors seen were 5.2e-6 at |state| <= 1.3 and 4.1e-6 at
+# |y| <= 2 on the card, PERF.md); a bfloat16 y is rounded once, so one
+# bfloat16 ulp
+SSD_CASES = [(1, 512, 48, 64, 1, 128, 64), (4, 2048, 48, 64, 1, 128, 64),
+             (2, 1000, 48, 64, 4, 128, 64)]
+SSD_F32_TOL = {"rtol": 1e-5, "atol": 1e-5}
+SSD_Y_BF16_TOL = {"rtol": 2.0 ** -7, "atol": 1e-6}
 
 # phase 5: real problem sizes and the configuration each runs with
 REAL = [
@@ -140,8 +196,12 @@ def nvidia_smi():
     return r.stdout.strip().splitlines()[0]
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops, nbytes, bf16_flops=0.0):
+    """The least time for the work, in ms, and what bounds it: ``flops``
+    at the FP32 peak plus ``bf16_flops`` (products of two bf16 operands)
+    at the bf16 tensor-core peak, against ``nbytes`` at the HBM rate."""
+    t_ops = flops / PEAK_FP32_FLOPS + bf16_flops / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops > t_bytes else "bytes")
 
@@ -151,14 +211,34 @@ def plain_kernels():
     """Run the model with each kernel's plain version in its wrapper's
     place (for the comparison only: the plain versions count no
     launches)."""
-    from repro_torch.kernels import decode_attention as da, rmsnorm as rn
-    saved = rn.rmsnorm, da.decode_attention
-    rn.rmsnorm, da.decode_attention = rn.rmsnorm_plain, \
-        da.decode_attention_plain
+    from repro_torch.kernels import decode_attention as da, rmsnorm as rn, \
+        ssd_scan as ss
+    saved = rn.rmsnorm, da.decode_attention, ss.ssd_scan
+    rn.rmsnorm, da.decode_attention, ss.ssd_scan = rn.rmsnorm_plain, \
+        da.decode_attention_plain, ss.ssd_scan_plain
     try:
         yield
     finally:
-        rn.rmsnorm, da.decode_attention = saved
+        rn.rmsnorm, da.decode_attention, ss.ssd_scan = saved
+
+
+@contextlib.contextmanager
+def prefill_state_short():
+    """Run the model with the plain versions and a scan whose final state
+    is taken one token short (the last step dropped), for the check that
+    the float32 logits' limit sees it: the prefill's logits are right,
+    the decode steps carry the wrong state."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    def short(x, dt, A, B, C, chunk=64):
+        y, _ = ss.ssd_scan_plain(x, dt, A, B, C, chunk)
+        _, st = ss.ssd_scan_plain(x[:, :-1], dt[:, :-1], A, B[:, :-1],
+                                  C[:, :-1], chunk)
+        return y, st
+
+    with plain_kernels():
+        ss.ssd_scan = short
+        yield
 
 
 @contextlib.contextmanager
@@ -177,31 +257,21 @@ def decode_lengths_shifted(shift):
         da.decode_attention = saved
 
 
-def profile_decode(torch, forward, init_caches, cfg, params, toks, max_seq,
-                   dev, steps=5):
-    """Where a decode step's time goes: ``steps`` decode steps of the
-    8-row batch under ``torch.profiler``, the device's busy time (the sum
-    of the kernels' own device times) against the wall time, the kernel
-    launches per step, and the kernels that take the most device time."""
+def _profiled(torch, fn, steps):
+    """``fn`` run ``steps`` times under ``torch.profiler``: the device's
+    busy time (the sum of the kernels' own device times) against the wall
+    time, the kernel launches per step, and the kernels that take the
+    most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
-        caches = init_caches(cfg, toks.shape[0], max_seq, device=dev)
-        lg, _, caches = forward(params, toks, cfg, caches=caches,
-                                mode="prefill")
-        for _ in range(2):                      # warm up
-            lg, _, caches = forward(params, lg[:, -1].argmax(-1)[:, None],
-                                    cfg, caches=caches, mode="decode")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                lg, _, caches = forward(params,
-                                        lg[:, -1].argmax(-1)[:, None], cfg,
-                                        caches=caches, mode="decode")
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
     busy_us = sum(e.self_device_time_total for e in kernels)
@@ -214,6 +284,85 @@ def profile_decode(torch, forward, init_caches, cfg, params, toks, max_seq,
             "top_kernels_ms_per_step": {
                 e.key[:60]: e.self_device_time_total / steps / 1e3
                 for e in top}}
+
+
+def profile_decode(torch, forward, init_caches, cfg, params, toks, max_seq,
+                   dev, steps=5):
+    """Where a decode step's time goes: ``steps`` decode steps of the
+    8-row batch under ``torch.profiler`` (:func:`_profiled`)."""
+    with torch.inference_mode():
+        caches = init_caches(cfg, toks.shape[0], max_seq, device=dev)
+        lg, _, caches = forward(params, toks, cfg, caches=caches,
+                                mode="prefill")
+        for _ in range(2):                      # warm up
+            lg, _, caches = forward(params, lg[:, -1].argmax(-1)[:, None],
+                                    cfg, caches=caches, mode="decode")
+        state = {"lg": lg, "c": caches}
+
+        def step():
+            state["lg"], _, state["c"] = forward(
+                params, state["lg"][:, -1].argmax(-1)[:, None], cfg,
+                caches=state["c"], mode="decode")
+        return _profiled(torch, step, steps)
+
+
+def profile_prefill(torch, forward, init_caches, cfg, params, toks, max_seq,
+                    dev):
+    """Where a prefill's time goes: one prefill of the 8-row batch (after
+    one to warm up) under ``torch.profiler`` (:func:`_profiled`)."""
+    with torch.inference_mode():
+        caches = init_caches(cfg, toks.shape[0], max_seq, device=dev)
+        forward(params, toks, cfg, caches=caches, mode="prefill")
+        return _profiled(torch, lambda: forward(
+            params, toks, cfg, caches=caches, mode="prefill"), 1)
+
+
+def logits_vs_plain(torch, forward, init_caches, mcfg, mparams, toks0,
+                    max_seq, dev, faults):
+    """One prefill of ``toks0`` and :data:`LOGIT_STEPS` decode steps.
+    Per step, the largest |logit difference| from the plain versions'
+    run: of the kernels, and of each fault (a name -> a context manager
+    to run the same steps under, fed the same tokens).  Only the real
+    vocabulary's logits are compared: the padded rows are -1e9 on both
+    sides."""
+    V = mcfg.vocab
+
+    def run(feed=None):
+        out, fed = [], []
+        with torch.inference_mode():
+            caches = init_caches(mcfg, toks0.shape[0], max_seq, device=dev)
+            lg, _, caches = forward(mparams, toks0, mcfg, caches=caches,
+                                    mode="prefill")
+            out.append(lg[:, -1, :V].float())
+            for i in range(LOGIT_STEPS):
+                nxt = lg[:, -1, :V].argmax(-1)[:, None] if feed is None \
+                    else feed[i]
+                fed.append(nxt)
+                lg, _, caches = forward(mparams, nxt, mcfg, caches=caches,
+                                        mode="decode")
+                out.append(lg[:, -1, :V].float())
+        return out, fed
+
+    got, fed = run()
+    with plain_kernels():
+        want, _ = run(fed)
+    runs = {"kernels": got}
+    for name, fault in faults.items():
+        with fault():
+            runs[name], _ = run(fed)
+    torch.cuda.synchronize()
+    res = {name: [float((a - b).abs().max()) for a, b in zip(xs, want)]
+           for name, xs in runs.items()}
+    res["max_abs_logit"] = max(float(b.abs().max()) for b in want)
+    res["argmax_agree"] = min(
+        float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        for a, b in zip(got, want))
+    return res
+
+
+def bf16_ulp(v):
+    """One bfloat16 ulp at the size of ``v`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7)
 
 
 def serve_phase(torch, np, time_ms):
@@ -251,7 +400,7 @@ def serve_phase(torch, np, time_ms):
     for r in reqs:
         assert len(r.out_tokens) == r.max_new_tokens, r.id
         assert all(0 <= t < cfg.vocab for t in r.out_tokens), r.id
-    assert all(n > 0 for n in launches.values()), \
+    assert launches["rmsnorm"] > 0 and launches["decode_attention"] > 0, \
         ("a model kernel was not launched on the serving path", launches)
     dev = eng.context.devices[0].torch_device
     assert dev.type == "cuda", dev
@@ -274,41 +423,13 @@ def serve_phase(torch, np, time_ms):
     toks0 = torch.tensor(rng.integers(0, cfg.vocab, (8, 64)), device=dev)
     params = alone._exec.params
 
-    def logits_run(mcfg, mparams, feed=None):
-        out, fed = [], []
-        with torch.inference_mode():
-            caches = init_caches(mcfg, 8, eng.S, device=dev)
-            lg, _, caches = forward(mparams, toks0, mcfg, caches=caches,
-                                    mode="prefill")
-            out.append(lg[:, -1].float())
-            for i in range(LOGIT_STEPS):
-                nxt = lg[:, -1].argmax(-1)[:, None] if feed is None \
-                    else feed[i]
-                fed.append(nxt)
-                lg, _, caches = forward(mparams, nxt, mcfg, caches=caches,
-                                        mode="decode")
-                out.append(lg[:, -1].float())
-        return out, fed
-
     def logits_check(mcfg, mparams):
-        """Per step, the largest |logit difference| from the plain
-        versions' run: of the kernels, and of the kernels with decode
-        attention's lengths one short and one long."""
-        got, fed = logits_run(mcfg, mparams)
-        with plain_kernels():
-            want, _ = logits_run(mcfg, mparams, fed)
-        runs = {"kernels": got}
-        for name, shift in (("short_by_one", -1), ("long_by_one", 1)):
-            with decode_lengths_shifted(shift):
-                runs[name], _ = logits_run(mcfg, mparams, fed)
-        torch.cuda.synchronize()
-        res = {name: [float((a - b).abs().max()) for a, b in zip(xs, want)]
-               for name, xs in runs.items()}
-        res["max_abs_logit"] = max(float(b.abs().max()) for b in want)
-        res["argmax_agree"] = min(
-            float((a.argmax(-1) == b.argmax(-1)).float().mean())
-            for a, b in zip(got, want))
-        return res
+        """Of the kernels, and of the kernels with decode attention's
+        lengths one short and one long."""
+        return logits_vs_plain(
+            torch, forward, init_caches, mcfg, mparams, toks0, eng.S, dev,
+            {"short_by_one": lambda: decode_lengths_shifted(-1),
+             "long_by_one": lambda: decode_lengths_shifted(1)})
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     logits = {"bfloat16": logits_check(cfg, params),
@@ -420,6 +541,175 @@ def serve_phase(torch, np, time_ms):
                     "max_abs_err": dec_err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bms, "bound_by": "bytes", "library_ms": lib_ms})
     return entries
+
+
+def ssd_flops_bytes(b, s, h, p, g, n, chunk, esize):
+    """The scan's work for these inputs, as (f32 flops, bf16 flops,
+    bytes).  Per (b, h) and chunk of l real steps, with the causal
+    triangle t = l (l + 1) / 2 that y_i's sum over j <= i needs: t x n
+    (C B^T, two bf16 operands when esize is 2), t x p (W x), l x n x p
+    (C S) and n x l x p (B^T x), the last three with a float32 operand;
+    two operations per multiply-add.  Bytes: x, dt, B and C read once in
+    their dtype, A once, y written once, the float32 final state written
+    once."""
+    L = min(chunk, s)
+    lens = [L] * (s // L) + ([s % L] if s % L else [])
+    tri = sum(l * (l + 1) // 2 for l in lens)
+    cb = 2.0 * b * h * tri * n
+    rest = 2.0 * b * h * (tri * p + sum(2 * l * n * p for l in lens))
+    nbytes = (2 * b * s * h * p + b * s * h + 2 * b * s * g * n) * esize \
+        + 4 * h + 4 * b * h * p * n
+    if esize == 2:
+        return rest, cb, nbytes
+    return rest + cb, 0.0, nbytes
+
+
+def ssm_serve_phase(torch, np, time_ms):
+    """Phases 8 and 9: serving mamba2-780m at full width, then ssd_scan
+    against its plain version, timed.  Returns the kernels line's entry
+    of ssd_scan."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import forward, init_caches
+    from repro_torch.serving import Request, ServingEngine
+
+    # -- 8. the serving run, with the launch counts of its kernels
+    cfg = configs.get_config(SSM_SERVE["arch"])
+    eng = serve.make_engine(cfg, SSM_SERVE["seed"], SSM_SERVE["batch_slots"],
+                            SSM_SERVE["max_seq"])
+    reqs = serve.make_requests(cfg, np.random.default_rng(SSM_SERVE["seed"]),
+                               SSM_SERVE["requests"], SSM_SERVE["prompt_len"],
+                               SSM_SERVE["new_tokens"])
+    for k in KERNELS:
+        k.launches = 0
+    run = serve.serve(eng, reqs, SSM_SERVE["arrival_every"])
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in KERNELS}
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        serve.report(run)
+    done = run["done"]
+    assert len(done) == len(reqs) and all(r.done for r in reqs), \
+        [(r.id, r.state, r.error) for r in reqs]
+    for r in reqs:
+        assert len(r.out_tokens) == r.max_new_tokens, r.id
+        assert all(0 <= t < cfg.vocab for t in r.out_tokens), r.id
+    assert launches["ssd_scan"] > 0 and launches["rmsnorm"] > 0, \
+        ("a model kernel was not launched on the serving path", launches)
+    dev = eng.context.devices[0].torch_device
+    assert dev.type == "cuda", dev
+
+    alone = ServingEngine(cfg, eng.params, batch_slots=eng.B,
+                          max_seq=eng.S, context=eng.context)
+    for r in reqs[:SSM_RERUN_ALONE]:
+        again = Request(prompt=r.prompt.copy(),
+                        max_new_tokens=r.max_new_tokens)
+        alone.generate([again])
+        assert again.out_tokens == r.out_tokens, \
+            ("stream changed when served alone", r.id)
+
+    # logits: kernels against their plain versions, one 64-token prefill
+    # and decode steps, in the served bfloat16 and in float32 (same weights);
+    # in float32 the limit must also fail the plain run whose prefill
+    # state is one token short
+    rng = np.random.default_rng(2)
+    toks0 = torch.tensor(rng.integers(0, cfg.vocab, (8, 64)), device=dev)
+    params = alone._exec.params
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    logits = {
+        "bfloat16": logits_vs_plain(torch, forward, init_caches, cfg, params,
+                                    toks0, eng.S, dev, {}),
+        "float32": logits_vs_plain(torch, forward, init_caches, cfg32,
+                                   eng.params, toks0, eng.S, dev,
+                                   {"state_one_token_short":
+                                    prefill_state_short})}
+    limits = {"bfloat16": SSM_LOGIT_ULPS_BF16
+              * bf16_ulp(logits["bfloat16"]["max_abs_logit"]),
+              "float32": SSM_LOGIT_ATOL_F32}
+    prof = {"prefill": profile_prefill(torch, forward, init_caches, cfg,
+                                       params, toks0, eng.S, dev),
+            "decode": profile_decode(torch, forward, init_caches, cfg,
+                                     params, toks0, eng.S, dev)}
+    emit(8, path="repro_torch.launch.serve", serve=SSM_SERVE,
+         config={"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                 "ssm_inner": cfg.ssm_inner, "ssm_heads": cfg.ssm_heads,
+                 "ssm_head_dim": cfg.ssm_head_dim,
+                 "ssm_state": cfg.ssm_state, "ssm_groups": cfg.ssm_groups,
+                 "ssm_conv": cfg.ssm_conv, "ssm_chunk": cfg.ssm_chunk,
+                 "vocab": cfg.vocab, "dtype": cfg.dtype},
+         requests=len(done), tokens=run["tokens"], wall_s=run["wall_s"],
+         tok_s=run["tok_s"], decode_steps=run["decode_steps"],
+         decode_step_ms_median=run["decode_step_ms_median"],
+         prefill_calls=eng.compile_stats["prefill_calls"],
+         prefill_shapes=eng.compile_stats["prefill_shapes"],
+         prompt_lens=[len(r.prompt) for r in reqs],
+         launches=launches, summary=log.getvalue().splitlines()[:4],
+         rerun_alone_identical=SSM_RERUN_ALONE,
+         logits_vs_plain=logits, logits_atol=limits, profile=prof)
+    for dt, res in logits.items():
+        assert max(res["kernels"]) <= limits[dt], \
+            ("logits, kernels vs plain", dt, res["kernels"], limits[dt])
+    assert max(logits["float32"]["state_one_token_short"]) > \
+        SSM_LOGIT_ATOL_F32, \
+        ("the float32 logits' limit does not see a prefill state one token "
+         "short", logits["float32"]["state_one_token_short"])
+    del eng, alone, params
+    torch.cuda.empty_cache()
+
+    # -- 9. ssd_scan against its plain version, then timed
+    cases, err = [], 0.0
+    for i, (b, s, h, p, g, n, chunk) in enumerate(SSD_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            rng = np.random.default_rng(10 + i)
+
+            def t(a, d=dtype):
+                return torch.tensor(a, dtype=torch.float32, device=dev).to(d)
+            x = t(rng.standard_normal((b, s, h, p)))
+            dt = t(np.log1p(np.exp(rng.standard_normal((b, s, h)) - 1.0)))
+            A = t(-rng.uniform(0.5, 1.5, h), torch.float32)
+            B = t(rng.standard_normal((b, s, g, n)) / np.sqrt(n))
+            C = t(rng.standard_normal((b, s, g, n)) / np.sqrt(n))
+            y, st = ssd_scan(x, dt, A, B, C, chunk)
+            py, pst = ssd_scan_plain(x, dt, A, B, C, chunk)
+            _, short = ssd_scan_plain(x[:, :-1], dt[:, :-1], A, B[:, :-1],
+                                      C[:, :-1], chunk)
+            torch.cuda.synchronize()
+            y_tol = SSD_F32_TOL if dtype == torch.float32 else SSD_Y_BF16_TOL
+            torch.testing.assert_close(y.float(), py.float(), **y_tol)
+            torch.testing.assert_close(st, pst, **SSD_F32_TOL)
+            assert not torch.allclose(st, short, **SSD_F32_TOL), \
+                ("ssd_scan state tolerance misses a scan one step short",
+                 (b, s, h, p, g, n), str(dtype))
+            y_err = float((y.float() - py.float()).abs().max())
+            st_err = float((st - pst).abs().max())
+            err = max(err, y_err, st_err)
+            ms = time_ms(lambda: ssd_scan(x, dt, A, B, C, chunk))
+            plain_ms = time_ms(lambda: ssd_scan_plain(x, dt, A, B, C, chunk),
+                               reps=3, warmup=1)
+            flops, bf16_flops, nbytes = ssd_flops_bytes(
+                b, s, h, p, g, n, chunk, x.element_size())
+            bms, by = bound(flops, nbytes, bf16_flops)
+            cases.append({"shape": [b, s, h, p], "g": g, "n": n,
+                          "chunk": chunk, "dtype": str(dtype), "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": bms,
+                          "bound_by": by, "fraction_of_bound": bms / ms,
+                          "y_err": y_err, "state_err": st_err,
+                          "short_state_diff": float((st - short).abs().max()),
+                          "blocks": (p + 15) // 16 * h * b})
+            del x, dt, B, C, y, st, py, pst, short
+    emit(9, kernel="ssd_scan", cases=cases, max_abs_err_vs_plain=err,
+         y_tol={"float32": SSD_F32_TOL, "bfloat16": SSD_Y_BF16_TOL},
+         state_tol=SSD_F32_TOL, launches=launches["ssd_scan"],
+         library_ms=None)
+    main_case = cases[0]     # the served prefill's shape, bfloat16
+    return [{"name": "ssd_scan", "source": MODEL_KERNELS["ssd_scan"][0],
+             "replaces": MODEL_KERNELS["ssd_scan"][1],
+             "launches": launches["ssd_scan"], "max_abs_err": err,
+             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+             "bound_ms": main_case["bound_ms"],
+             "bound_by": main_case["bound_by"], "library_ms": None}]
 
 
 def main() -> int:
@@ -674,8 +964,12 @@ def main() -> int:
 
     # -- 6. serving at full width (main path) ----------------------------------------
     entries += serve_phase(torch, np, time_ms)
+    torch.cuda.empty_cache()
 
-    # -- 8. kernels line, card, result ---------------------------------------------
+    # -- 8. serving mamba2-780m at full width (main path) ----------------------------
+    entries += ssm_serve_phase(torch, np, time_ms)
+
+    # -- 10. kernels line, card, result --------------------------------------------
     print(json.dumps({"kernels": [
         {"name": e["name"], "route": "cuda",
          "source": e.get("source", KERNEL_SOURCE),

@@ -2,9 +2,9 @@
 
 ``get_config(arch)`` returns the exact published config; ``get_smoke(arch)``
 returns a reduced same-family config for CPU tests.  The port runs the
-dense family only so far, so the registry lists ``smollm-135m`` alone;
-the reference's other architectures wait for their model families
-(ROADMAP A.8) and raise ``KeyError`` saying so.
+dense and ssm families so far, so the registry lists ``smollm-135m`` and
+``mamba2-780m``; the reference's other architectures wait for their
+model families (ROADMAP A.8) and raise ``KeyError`` saying so.
 """
 
 from __future__ import annotations
@@ -17,11 +17,12 @@ from ..models.config import ModelConfig
 
 _ARCHS = {
     "smollm-135m": "smollm_135m",
+    "mamba2-780m": "mamba2_780m",
 }
 
 #: the reference's other architectures, not ported yet (ROADMAP A.8)
-_WAITING = ("phi3.5-moe-42b-a6.6b", "granite-moe-3b-a800m", "mamba2-780m",
-            "whisper-small", "internlm2-20b", "granite-34b", "starcoder2-7b",
+_WAITING = ("phi3.5-moe-42b-a6.6b", "granite-moe-3b-a800m", "whisper-small",
+            "internlm2-20b", "granite-34b", "starcoder2-7b",
             "llama-3.2-vision-11b", "zamba2-7b")
 
 ARCH_IDS: List[str] = list(_ARCHS)

@@ -1,11 +1,11 @@
 """Dispatch wrappers: hand-written CUDA kernel vs plain torch reference.
 
 The model stack calls these; ``use_kernels`` selects the kernels of this
-package (:mod:`.rmsnorm`, :mod:`.decode_attention`), whose wrappers
-launch the CUDA kernel for CUDA tensors and run its plain version for CPU
-tensors.  ``use_kernels=False`` selects :mod:`.ref`.  The Pallas flash
-attention and SSD scan of the reference have no port yet (ROADMAP §B.4,
-§B.5), so asking for them raises.
+package (:mod:`.rmsnorm`, :mod:`.decode_attention`, :mod:`.ssd_scan`),
+whose wrappers launch the CUDA kernel for CUDA tensors and run its plain
+version for CPU tensors.  ``use_kernels=False`` selects :mod:`.ref`.  The
+Pallas flash attention of the reference has no port yet (ROADMAP §B.4),
+so asking for it raises.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 from . import decode_attention as _dec
 from . import ref
 from . import rmsnorm as _rms
+from . import ssd_scan as _ssd
 
 
 def attention(q, k, v, causal: bool = True, use_kernels: bool = False):
@@ -36,9 +37,10 @@ def rmsnorm(x, w, eps: float = 1e-6, use_kernels: bool = False):
 
 
 def ssd_scan(x, dt, A, B, C, chunk: int = 64, use_kernels: bool = False):
-    raise NotImplementedError(
-        "ssd_scan is not ported yet (ROADMAP §B.5); the Mamba-2 layers "
-        "wait for it")
+    """Returns (y, final_state) either way."""
+    if use_kernels:
+        return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    return ref.ssd_scan(x, dt, A, B, C, chunk=chunk, return_state=True)
 
 
 __all__ = ["attention", "decode_attention", "rmsnorm", "ssd_scan"]

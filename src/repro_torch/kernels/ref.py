@@ -4,12 +4,15 @@ path of :mod:`repro_torch.kernels.ops`.
 The torch port of the part of ``repro.kernels.ref`` the serving path
 calls.  Each keeps the reference's dtypes: a product of two bfloat16
 operands gives bfloat16, and the decode scores are taken in the cache's
-dtype before the f32 softmax.
+dtype before the f32 softmax.  Where the reference's ``jnp.einsum``
+promotes mixed operands (bfloat16 with float32), the cast is written out
+(:func:`promoted`): ``torch.einsum`` refuses mixed dtypes.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -80,5 +83,106 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * w.to(torch.float32)).to(dt)
 
 
-__all__ = ["attention", "decode_attention", "matmul", "repeat_kv",
-           "rmsnorm"]
+def promoted(*ts: torch.Tensor):
+    """The operands in their promoted dtype, as ``jnp.einsum`` casts them
+    before it contracts."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t.to(dt) for t in ts]
+
+
+def _repeat_groups(t: torch.Tensor, rep: int, dim: int) -> torch.Tensor:
+    """``jnp.repeat(t, rep, axis=dim)``: each group broadcast over its
+    ``rep`` heads."""
+    return t.repeat_interleave(rep, dim=dim) if rep > 1 else t
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, chunk: int = 64,
+             initial_state: Optional[torch.Tensor] = None,
+             return_state: bool = False):
+    """Mamba-2 SSD (state-space duality) reference, chunked formulation.
+
+    x:  (b, s, h, p)   inputs (already conv'd/activated)
+    dt: (b, s, h)      positive step sizes (post softplus)
+    A:  (h,)           negative state decay rates
+    B:  (b, s, g, n)   input projections (g groups broadcast over h)
+    C:  (b, s, g, n)   output projections
+    Returns y: (b, s, h, p) in x's dtype [and the final state (b, h, p, n)
+    in float32].
+
+    Semantics: h_t = exp(dt_t*A) * h_{t-1} + dt_t * B_t x_t ; y_t = C_t h_t.
+    """
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if s % chunk:
+        raise ValueError(f"ssd_scan: s={s} is not a multiple of chunk={chunk}")
+    nc = s // chunk
+    rep = h // g
+    Bc = _repeat_groups(B, rep, 2).reshape(b, nc, chunk, h, n)
+    Cc = _repeat_groups(C, rep, 2).reshape(b, nc, chunk, h, n)
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, h)
+
+    dA = dtc * A[None, None, None, :]              # (b, nc, L, h), negative
+    dA_cs = torch.cumsum(dA, dim=2)                # inclusive cumsum
+    # intra-chunk: y_intra[i] = sum_{j<=i} C_i . B_j x_j dt_j exp(cs_i-cs_j)
+    seg = dA_cs[:, :, :, None, :] - dA_cs[:, :, None, :, :]  # (b,nc,i,j,h)
+    idx = torch.arange(chunk, device=x.device)
+    causal = idx[:, None] >= idx[None, :]
+    L = torch.where(causal[None, None, :, :, None], torch.exp(seg),
+                    torch.zeros((), dtype=seg.dtype, device=x.device))
+    cb = torch.einsum("bcihn,bcjhn->bcijh", *promoted(Cc, Bc))
+    y_intra = torch.einsum("bcijh,bcijh,bcjh,bcjhp->bcihp",
+                           *promoted(cb, L, dtc, xc))
+
+    # chunk-final states: S_c = sum_j exp(cs_L - cs_j) dt_j B_j x_j^T
+    decay_to_end = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)   # (b,nc,L,h)
+    states = torch.einsum("bcjh,bcjh,bcjhn,bcjhp->bchpn",
+                          *promoted(decay_to_end, dtc, Bc, xc))
+
+    # inter-chunk recurrence over c: S'_c = G_c S'_{c-1} + states_c, in
+    # float32 whatever the activations' dtype; each chunk sees the state
+    # *entering* it
+    G = torch.exp(dA_cs[:, :, -1, :]).to(torch.float32)     # (b, nc, h)
+    states = states.to(torch.float32)
+    carry = initial_state.to(torch.float32) if initial_state is not None \
+        else torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    prev = []
+    for c in range(nc):
+        prev.append(carry)
+        carry = G[:, c, :, None, None] * carry + states[:, c]
+    prev_states = torch.stack(prev, dim=1)                   # (b,nc,h,p,n)
+
+    # inter-chunk contribution: y_inter[i] = C_i exp(cs_i) S_prev
+    decay_from_start = torch.exp(dA_cs)                      # (b,nc,L,h)
+    y_inter = torch.einsum("bcihn,bcih,bchpn->bcihp",
+                           *promoted(Cc, decay_from_start, prev_states))
+
+    y = (y_intra + y_inter).reshape(b, s, h, p).to(x.dtype)
+    if return_state:
+        return y, carry
+    return y
+
+
+def ssd_decode_step(state: torch.Tensor, x_t: torch.Tensor,
+                    dt_t: torch.Tensor, A: torch.Tensor, B_t: torch.Tensor,
+                    C_t: torch.Tensor):
+    """Single-token SSD recurrence.  state: (b,h,p,n); x_t: (b,h,p);
+    dt_t: (b,h); B_t, C_t: (b,g,n).  Returns (y_t, new_state); y_t takes
+    the promoted dtype of the state and C_t, as the reference's einsum
+    does."""
+    b, h, p = x_t.shape
+    rep = h // B_t.shape[1]
+    Bh = _repeat_groups(B_t, rep, 1)                         # (b,h,n)
+    Ch = _repeat_groups(C_t, rep, 1)
+    dA = torch.exp(dt_t * A[None, :])                        # (b,h)
+    new = dA[:, :, None, None] * state + \
+        (dt_t[:, :, None] * x_t)[..., None] * Bh[:, :, None, :]
+    y = torch.einsum("bhpn,bhn->bhp", *promoted(new, Ch))
+    return y, new
+
+
+__all__ = ["attention", "decode_attention", "matmul", "promoted",
+           "repeat_kv", "rmsnorm", "ssd_decode_step", "ssd_scan"]

@@ -1,6 +1,6 @@
-"""repro_torch.models — the dense language-model family in torch: config,
-parameter tables and initialization, layers, the forward pass and the KV
-caches (ports of ``repro.models``)."""
+"""repro_torch.models — the dense and ssm (Mamba-2) language-model
+families in torch: config, parameter tables and initialization, layers,
+the forward pass and the caches (ports of ``repro.models``)."""
 
 from .config import ModelConfig
 from .model import (cache_logical_axes, forward, init_caches, init_params,

@@ -1,9 +1,9 @@
-"""End-to-end dense language model, in torch.
+"""End-to-end language models of the dense and ssm families, in torch.
 
-The port of the dense family of ``repro.models.model``: the compute-dtype
-cast of the parameters, the embedding and LM head, the backbone (a Python
-loop over the stacked layers where the reference scanned them), the
-forward entry point, and the KV caches.  Other families raise.
+The port of those families of ``repro.models.model``: the compute-dtype
+cast of the parameters, the embedding and LM head, the backbones (a
+Python loop over the stacked layers where the reference scanned them),
+the forward entry point, and the caches.  Other families raise.
 """
 
 from __future__ import annotations
@@ -106,20 +106,52 @@ def _dense_backbone(params, x, cfg, *, positions, caches):
                "len": caches["len"] + x.shape[1]}
 
 
+def _ssm_backbone(params, x, cfg, *, caches):
+    """The Mamba-2 stack.  With caches, each layer's SSD state is written
+    into ``caches["ssd"]`` in place (it is float32 in every model), while
+    the conv windows come back stacked in the dtype the layers computed
+    them in, as the reference's scan returns them."""
+    if caches is None:
+        for i in range(cfg.n_layers):
+            x, _ = layers.mamba_block(x, _layer(params["layers"], i), cfg)
+        return x, None
+    windows = ([], [], [])
+    for i in range(cfg.n_layers):
+        lc = (caches["conv_x"][i], caches["conv_B"][i], caches["conv_C"][i],
+              caches["ssd"][i])
+        x, nc = layers.mamba_block(x, _layer(params["layers"], i), cfg,
+                                   cache=lc)
+        for acc, w in zip(windows, nc[:3]):
+            acc.append(w)
+        caches["ssd"][i].copy_(nc[3])
+    return x, {"conv_x": torch.stack(windows[0]),
+               "conv_B": torch.stack(windows[1]),
+               "conv_C": torch.stack(windows[2]), "ssd": caches["ssd"],
+               "len": caches["len"] + x.shape[1]}
+
+
+_BACKBONES = ("dense", "ssm")
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in _BACKBONES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP A.8)")
+
+
 # ---------------------------------------------------------------------------
 # public entry point
 # ---------------------------------------------------------------------------
 
 def forward(params: Params, tokens, cfg: ModelConfig, *, caches=None,
             mode: str = "train"):
-    """Returns (logits, moe_aux_loss, new_caches); the aux loss is 0 in a
-    dense model.
+    """Returns (logits, moe_aux_loss, new_caches); the aux loss is 0 in the
+    dense and ssm families.
 
     ``caches`` (from :func:`init_caches`) are updated in place: the
-    returned dict holds the same K/V tensors and a new length vector."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP A.8)")
+    returned dict holds the same K/V (dense) or SSD state (ssm) tensors,
+    the ssm family's new conv windows and a new length vector."""
+    _check_family(cfg)
     params = _cast(params, cfg)
     B, S = tokens.shape
     if caches is not None and mode == "decode":
@@ -129,8 +161,11 @@ def forward(params: Params, tokens, cfg: ModelConfig, *, caches=None,
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
 
     x = embed_tokens(params, tokens, cfg)
-    x, nc = _dense_backbone(params, x, cfg, positions=positions,
-                            caches=caches)
+    if cfg.family == "ssm":
+        x, nc = _ssm_backbone(params, x, cfg, caches=caches)
+    else:
+        x, nc = _dense_backbone(params, x, cfg, positions=positions,
+                                caches=caches)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return lm_head(params, x, cfg), aux, nc
 
@@ -141,26 +176,47 @@ def forward(params: Params, tokens, cfg: ModelConfig, *, caches=None,
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 device: Union[str, torch.device] = "cpu"):
-    """The dense family's caches, stacked on a leading layer axis, in the
-    attention kernel's (B, KV, S, D) layout.  The K/V caches are bfloat16
-    whatever ``cfg.dtype`` is, as in the reference."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP A.8)")
-    kv = (cfg.n_layers, batch, cfg.n_kv, max_seq, cfg.hd)
-    return {"len": torch.zeros((batch,), dtype=torch.int32, device=device),
-            "k": torch.zeros(kv, dtype=torch.bfloat16, device=device),
-            "v": torch.zeros(kv, dtype=torch.bfloat16, device=device)}
+    """Per-family caches, stacked on a leading layer axis.  The dense
+    family's K/V are in the attention kernel's (B, KV, S, D) layout; the
+    ssm family keeps the last W-1 pre-conv inputs of x, B and C and the
+    (B, H, P, N) SSD state, whatever ``max_seq`` is.  Every cache but the
+    float32 SSD state and the int32 lengths is bfloat16 whatever
+    ``cfg.dtype`` is, as in the reference.  On the ``meta`` device the
+    caches take no memory (:meth:`TorchExecutor.cache_bytes` sizes them
+    so)."""
+    _check_family(cfg)
+    L = cfg.n_layers
+
+    def mk(shape, dt=torch.bfloat16):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    out = {"len": mk((batch,), torch.int32)}
+    if cfg.family == "dense":
+        kv = (L, batch, cfg.n_kv, max_seq, cfg.hd)
+        out.update(k=mk(kv), v=mk(kv))
+    else:
+        W, inner = cfg.ssm_conv, cfg.ssm_inner
+        GN = cfg.ssm_groups * cfg.ssm_state
+        out.update(
+            conv_x=mk((L, batch, W - 1, inner)),
+            conv_B=mk((L, batch, W - 1, GN)),
+            conv_C=mk((L, batch, W - 1, GN)),
+            ssd=mk((L, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                    cfg.ssm_state), torch.float32))
+    return out
 
 
 def cache_logical_axes(cfg: ModelConfig):
     """Logical axis names for every cache leaf (the executor reads the
     batch axis from them)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP A.8)")
-    kv = (None, "batch", "kv_heads", "cache_seq", "head_dim")
-    return {"len": (None,), "k": kv, "v": kv}
+    _check_family(cfg)
+    if cfg.family == "dense":
+        kv = (None, "batch", "kv_heads", "cache_seq", "head_dim")
+        return {"len": (None,), "k": kv, "v": kv}
+    return {"len": (None,), "conv_x": (None, "batch", None, "conv_dim"),
+            "conv_B": (None, "batch", None, None),
+            "conv_C": (None, "batch", None, None),
+            "ssd": (None, "batch", "ssm_heads", None, None)}
 
 
 __all__ = ["cache_logical_axes", "embed_tokens", "forward", "init_caches",

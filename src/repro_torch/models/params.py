@@ -1,7 +1,7 @@
 """Declarative parameter tables and initialization, in torch.
 
-The port of ``repro.models.params`` for the dense family.  One table per
-architecture declares every parameter's shape and init scale; random
+The port of ``repro.models.params`` for the dense and ssm families.  One
+table per architecture declares every parameter's shape and init scale; random
 initialization reads it, drawing from an explicit ``torch.Generator``.
 The reference's logical sharding axes are dropped: the port runs on one
 card.
@@ -25,7 +25,7 @@ from .config import ModelConfig
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
-    init: str = "normal"          # normal | ones
+    init: str = "normal"          # normal | zeros | ones | ssm_a | ssm_dt
     scale: Optional[float] = None  # None -> 1/sqrt(fan_in)
 
 
@@ -37,13 +37,24 @@ def _fan_in_scale(shape: Tuple[int, ...]) -> float:
     return 1.0 / math.sqrt(max(fan_in, 1))
 
 
+def _uniform(gen: torch.Generator, shape, lo: float, hi: float):
+    return torch.rand(shape, generator=gen, dtype=torch.float32) \
+        * (hi - lo) + lo
+
+
 def _init_leaf(gen: torch.Generator, d: ParamDef,
                dtype: torch.dtype) -> torch.Tensor:
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype)
+    if d.init == "ssm_a":       # Mamba2: A in [-1.5, -0.5]
+        return (-_uniform(gen, d.shape, 0.5, 1.5)).to(dtype)
+    if d.init == "ssm_dt":      # dt bias ~ softplus^-1(U(1e-3, 1e-1))
+        u = _uniform(gen, d.shape, 1e-3, 1e-1)
+        return torch.log(torch.expm1(u)).to(dtype)
     if d.init != "normal":
-        raise ValueError(f"init {d.init!r} belongs to a family that is not "
-                         f"ported yet (ROADMAP A.8)")
+        raise ValueError(f"unknown init {d.init!r}")
     scale = d.scale if d.scale is not None else _fan_in_scale(d.shape)
     x = torch.randn(d.shape, generator=gen, dtype=torch.float32) * scale
     return x.to(dtype)
@@ -65,7 +76,7 @@ def init_params(defs: ParamTree, generator: torch.Generator,
 
 
 # ---------------------------------------------------------------------------
-# the dense family's table
+# the dense and ssm families' tables
 # ---------------------------------------------------------------------------
 
 def _stack(n: int, d: ParamDef) -> ParamDef:
@@ -102,30 +113,67 @@ def mlp_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     }
 
 
+def mamba2_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    """Mamba-2 (SSD) mixer, with the reference's separate z/x/B/C/dt input
+    projections."""
+    d = cfg.d_model
+    inner = cfg.ssm_inner
+    H, N, G = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups
+    return {
+        "w_z": ParamDef((d, inner)),
+        "w_x": ParamDef((d, inner)),
+        "w_B": ParamDef((d, G * N)),
+        "w_C": ParamDef((d, G * N)),
+        "w_dt": ParamDef((d, H)),
+        "conv_x_w": ParamDef((cfg.ssm_conv, inner)),
+        "conv_x_b": ParamDef((inner,), init="zeros"),
+        "conv_B_w": ParamDef((cfg.ssm_conv, G * N)),
+        "conv_B_b": ParamDef((G * N,), init="zeros"),
+        "conv_C_w": ParamDef((cfg.ssm_conv, G * N)),
+        "conv_C_b": ParamDef((G * N,), init="zeros"),
+        "A_log": ParamDef((H,), init="ssm_a"),
+        "dt_bias": ParamDef((H,), init="ssm_dt"),
+        "D": ParamDef((H,), init="ones"),
+        "norm_w": ParamDef((inner,), init="ones"),
+        "w_out": ParamDef((inner, d), scale=_resid_scale(cfg, inner)),
+    }
+
+
 def _norm(cfg: ModelConfig) -> Dict[str, ParamDef]:
     return {"w": ParamDef((cfg.d_model,), init="ones")}
 
 
-def block_defs(cfg: ModelConfig) -> Dict[str, object]:
-    """One residual block: pre-norm + attention + pre-norm + MLP."""
-    return {"ln1": _norm(cfg), "attn": attn_defs(cfg),
-            "ln2": _norm(cfg), "ffn": mlp_defs(cfg)}
+def block_defs(cfg: ModelConfig, kind: str = "attn") -> Dict[str, object]:
+    """One residual block: pre-norm + attention + pre-norm + MLP
+    (``"attn"``), or pre-norm + Mamba-2 mixer (``"mamba"``)."""
+    if kind == "attn":
+        return {"ln1": _norm(cfg), "attn": attn_defs(cfg),
+                "ln2": _norm(cfg), "ffn": mlp_defs(cfg)}
+    if kind == "mamba":
+        return {"ln1": _norm(cfg), "mixer": mamba2_defs(cfg)}
+    raise ValueError(kind)
+
+
+#: the families ported, each with its block kind
+_FAMILY_BLOCKS = {"dense": "attn", "ssm": "mamba"}
 
 
 def model_defs(cfg: ModelConfig) -> ParamTree:
     """Full parameter table of a dense model with RMSNorm and a gated silu
-    MLP (the only kind ported)."""
-    if (cfg.family, cfg.norm, cfg.act) != ("dense", "rmsnorm", "silu"):
+    MLP, or of a Mamba-2 (ssm) model with RMSNorm (the kinds ported)."""
+    if cfg.family not in _FAMILY_BLOCKS or (cfg.norm, cfg.act) != \
+            ("rmsnorm", "silu"):
         raise NotImplementedError(
             f"{cfg.family} model with {cfg.norm} and {cfg.act}: only the "
-            f"dense rmsnorm/silu family is ported (ROADMAP A.8)")
+            f"dense and ssm rmsnorm/silu families are ported (ROADMAP A.8)")
     out: ParamTree = {
         "embed": ParamDef((cfg.padded_vocab, cfg.d_model), scale=0.02),
         "ln_f": _norm(cfg),
     }
     if not cfg.tie_embeddings:
         out["unembed"] = ParamDef((cfg.d_model, cfg.padded_vocab))
-    out["layers"] = _map(lambda p: _stack(cfg.n_layers, p), block_defs(cfg))
+    out["layers"] = _map(lambda p: _stack(cfg.n_layers, p),
+                         block_defs(cfg, _FAMILY_BLOCKS[cfg.family]))
     return out
 
 
@@ -152,5 +200,5 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
     return walk(defs, tree, "")
 
 
-__all__ = ["ParamDef", "block_defs", "init_params", "model_defs",
-           "params_from_jax"]
+__all__ = ["ParamDef", "block_defs", "init_params", "mamba2_defs",
+           "model_defs", "params_from_jax"]

@@ -17,7 +17,7 @@ property-test harness steps the scheduler thousands of times):
   occupied slot.  Row ``i`` of the result depends only on row ``i`` of
   the state, which is what makes per-request outputs independent of how
   requests were interleaved into slots (tests/test_serving_props.py).
-* ``cache_bytes(batch, seq)``       — KV footprint, for page sizing.
+* ``cache_bytes(batch, seq)``       — cache footprint, for page sizing.
 
 :class:`TorchExecutor` is the production implementation over
 ``repro_torch.models.forward`` (the port of the reference's
@@ -68,17 +68,25 @@ class BatchExecutor:
 # production executor over the torch model
 # ---------------------------------------------------------------------------
 
+#: families whose caches carry a recurrent state that padding would change
+_RECURRENT = ("ssm",)
+
+
 class TorchExecutor(BatchExecutor):
     """Prefill / insert / decode over ``repro_torch.models.forward``: the
     counterpart of the reference's ``JaxExecutor``, run eagerly.
 
-    * prefill: batch-1, prompt padded to a power-of-two bucket (floor
-      ``prefill_bucket``) — the reference's bucketing, which keeps the
-      shapes the kernels and the matmuls see to a handful.  Padding is
-      exact: the prompt is left-aligned, the first token is read at the
-      *true* last position, and the cache length is overridden to the
-      true length, so junk K/V beyond it is masked out (and overwritten
-      by decode).
+    * prefill: batch-1.  The dense family pads the prompt to a
+      power-of-two bucket (floor ``prefill_bucket``) — the reference's
+      bucketing, which keeps the shapes the kernels and the matmuls see
+      to a handful.  Padding is exact there: the prompt is left-aligned,
+      the first token is read at the *true* last position, and the cache
+      length is overridden to the true length, so junk K/V beyond it is
+      masked out (and overwritten by decode).  A family that carries a
+      recurrent state (ssm) prefills at the prompt's exact length: padded
+      tokens would enter its SSD state and conv window, which no length
+      masks (the reference's ``JaxExecutor`` buckets them all; ROADMAP
+      C.5).  Running eagerly, the port gains nothing from fewer shapes.
     * insert: copies a batch-1 cache fragment into one row of the batch
       cache along each leaf's batch axis (from
       :func:`repro_torch.models.cache_logical_axes`), in place — the
@@ -129,7 +137,7 @@ class TorchExecutor(BatchExecutor):
 
     def prefill(self, prompt: np.ndarray, slot: int):
         plen = int(len(prompt))
-        padded = self.bucket(plen)
+        padded = plen if self.cfg.family in _RECURRENT else self.bucket(plen)
         toks = np.zeros((1, padded), np.int64)
         toks[0, :plen] = prompt
         with self._lock:
@@ -171,9 +179,11 @@ class TorchExecutor(BatchExecutor):
         return state, out
 
     def cache_bytes(self, batch: int, seq: int) -> int:
-        cfg = self.cfg
-        kv = cfg.n_layers * batch * cfg.n_kv * seq * cfg.hd
-        return batch * 4 + 2 * kv * 2         # int32 lengths, bf16 K and V
+        """The bytes of every leaf of :func:`init_caches` for ``batch``
+        rows and ``seq`` tokens, from shapes and dtypes alone (the caches
+        are made on the ``meta`` device, which allocates nothing)."""
+        caches = init_caches(self.cfg, batch, seq, device="meta")
+        return int(sum(t.numel() * t.element_size() for t in caches.values()))
 
     # -- bookkeeping -----------------------------------------------------------
     def compile_stats(self) -> Dict[str, int]:

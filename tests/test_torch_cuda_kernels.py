@@ -3,9 +3,11 @@
 Each hand-written CUDA kernel against its plain PyTorch version on the
 same CUDA tensors, at the shapes the serving path gives it (smollm-135m:
 d 576; 9 query heads over 3 KV heads of 64 dims, 8 slots, a 2048-token
-bfloat16 cache) and at a few others that reach the kernels' other code
-paths; the wrappers' refusals; and a full-width forward through both
-kernels.  Everything here skips without a CUDA device and ``nvcc``.
+bfloat16 cache; mamba2-780m: d 1536 and 3072, a 512-token prefill of 48
+SSD heads of 64 with state 128) and at a few others that reach the
+kernels' other code paths; the wrappers' refusals; and full-width
+forwards through the kernels.  Everything here skips without a CUDA
+device and ``nvcc``.
 
 Tolerances: rmsnorm in float32 ``rtol=1e-5, atol=1e-6`` (the kernel and
 torch sum the squares in other orders) and in bfloat16 one bfloat16 ulp
@@ -16,6 +18,12 @@ so a float32 q is held at ``1e-5`` and a bfloat16 q at one bfloat16 ulp
 valid key must be exact zeros.  That tolerance is shown to be tight enough
 to see a length off by one: the kernel's output must fail it against the
 plain version given ``lengths - 1`` or ``lengths + 1``, row by row.
+SSD scan: both sides compute in float32 from the same inputs and differ
+in summation order and ``exp`` only, so the float32 state (and a float32
+y) is held at :data:`SSD_F32_TOL` and a bfloat16 y, rounded once, at one
+bfloat16 ulp (``rtol=2**-7``, ``atol=1e-6``); the kernel's final state
+must fail the state tolerance against the plain version given s - 1
+steps.
 
 On a machine with the card:
 
@@ -32,8 +40,11 @@ from repro_torch.kernels import KERNELS
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
 BF16_ULP = 2.0 ** -7
+SSD_F32_TOL = dict(rtol=1e-5, atol=1e-5)
+SSD_Y_BF16_TOL = dict(rtol=BF16_ULP, atol=1e-6)
 
 
 def _decode_tol(qdt):
@@ -201,3 +212,119 @@ def test_full_width_forward_advances_both_counters(dev):
     assert logits2.shape == (2, 1, cfg.padded_vocab)
     assert bool(torch.isfinite(logits2.float()).all())
     assert caches["len"].tolist() == [17, 17]
+
+
+SSD_SHAPES = [
+    # b, s, h, p, g, n, chunk: the served prefill (mamba2-780m, a 512-token
+    # prompt), a ragged s with two groups, a state wider than 128 with p
+    # not a multiple of 16, a small chunk with three groups
+    (1, 512, 48, 64, 1, 128, 64),
+    (2, 200, 8, 64, 2, 128, 64),
+    (1, 130, 4, 20, 1, 256, 64),
+    (3, 37, 6, 16, 3, 16, 8),
+]
+
+
+def _ssd_inputs(dev, dtype, b, s, h, p, g, n, seed):
+    """x, dt (positive), A (float32, in [-1.5, -0.5]), B, C on ``dev``:
+    x, dt, B and C in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    x = _t(rng.standard_normal((b, s, h, p)), dtype, dev)
+    dt = _t(np.log1p(np.exp(rng.standard_normal((b, s, h)) - 1.0)), dtype,
+            dev)
+    A = _t(-rng.uniform(0.5, 1.5, h), torch.float32, dev)
+    B = _t(rng.standard_normal((b, s, g, n)) / np.sqrt(n), dtype, dev)
+    C = _t(rng.standard_normal((b, s, g, n)) / np.sqrt(n), dtype, dev)
+    return x, dt, A, B, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain(dev, b, s, h, p, g, n, chunk, dtype):
+    x, dt, A, B, C = _ssd_inputs(dev, dtype, b, s, h, p, g, n, seed=s + n)
+    before = KERNELS[2].launches
+    y, st = ssd_scan(x, dt, A, B, C, chunk)
+    py, pst = ssd_scan_plain(x, dt, A, B, C, chunk)
+    torch.cuda.synchronize()
+    assert KERNELS[2].launches == before + 1
+    assert y.dtype == dtype and y.shape == (b, s, h, p)
+    assert st.dtype == torch.float32 and st.shape == (b, h, p, n)
+    np.testing.assert_allclose(
+        y.float().cpu().numpy(), py.float().cpu().numpy(),
+        **(SSD_F32_TOL if dtype == torch.float32 else SSD_Y_BF16_TOL))
+    np.testing.assert_allclose(st.cpu().numpy(), pst.cpu().numpy(),
+                               **SSD_F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_tolerance_sees_one_step_short(dev, b, s, h, p, g, n, chunk,
+                                                dtype):
+    """The kernel's final state fails the state tolerance against the
+    plain version given s - 1 steps."""
+    x, dt, A, B, C = _ssd_inputs(dev, dtype, b, s, h, p, g, n, seed=s + n)
+    _, st = ssd_scan(x, dt, A, B, C, chunk)
+    _, short = ssd_scan_plain(x[:, :-1].contiguous(), dt[:, :-1].contiguous(),
+                              A, B[:, :-1].contiguous(),
+                              C[:, :-1].contiguous(), chunk)
+    assert not torch.allclose(st, short, **SSD_F32_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x, dt, A, B, C = _ssd_inputs(dev, torch.bfloat16, 1, 64, 4, 16, 2, 16,
+                                 seed=1)
+    before = KERNELS[2].launches
+    with pytest.raises(InvalidArgError, match="dtype"):
+        ssd_scan(x, dt.float(), A, B, C)            # bf16 x with f32 dt
+    with pytest.raises(InvalidArgError, match="dtype"):
+        ssd_scan(x, dt, A.to(torch.bfloat16), B, C)
+    with pytest.raises(InvalidArgError, match="dtype"):
+        ssd_scan(x.half(), dt.half(), A, B.half(), C.half())
+    with pytest.raises(InvalidArgError, match="chunk"):
+        ssd_scan(x, dt, A, B, C, chunk=65)
+    with pytest.raises(InvalidArgError, match="h % g"):
+        ssd_scan(x, dt, A, B[:, :, :1].expand(1, 64, 3, 16).contiguous(),
+                 C[:, :, :1].expand(1, 64, 3, 16).contiguous())
+    with pytest.raises(InvalidArgError, match="n <= 256"):
+        wide = torch.zeros(1, 64, 2, 264, dtype=torch.bfloat16, device=dev)
+        ssd_scan(x, dt, A, wide, wide)
+    with pytest.raises(InvalidArgError, match="contiguous"):
+        ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, B, C)
+    with pytest.raises(InvalidArgError, match="shape"):
+        ssd_scan(x, dt[:, :32], A, B, C)
+    with pytest.raises(InvalidArgError):
+        ssd_scan(x, dt, A.cpu(), B, C)
+    torch.cuda.synchronize()
+    assert KERNELS[2].launches == before, "a refused call launched"
+
+
+@pytest.mark.cuda
+def test_full_width_mamba2_forward_launches_ssd_scan_in_prefill_only(dev):
+    from repro_torch import configs
+    from repro_torch.models import forward, init_caches, init_params
+
+    cfg = configs.get_config("mamba2-780m")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    caches = init_caches(cfg, 1, 256, device=dev)
+    toks = torch.randint(0, cfg.vocab, (1, 100), device=dev)
+    before = [k.launches for k in KERNELS]
+    with torch.inference_mode():
+        logits, _, caches = forward(params, toks, cfg, caches=caches,
+                                    mode="prefill")
+        mid = [k.launches for k in KERNELS]
+        nxt = logits[:, -1].argmax(-1)[:, None]
+        logits2, _, caches = forward(params, nxt, cfg, caches=caches,
+                                     mode="decode")
+    torch.cuda.synchronize()
+    after = [k.launches for k in KERNELS]
+    # rmsnorm: ln1 and the gated norm in each layer, and ln_f, per forward;
+    # ssd_scan: once per layer in the prefill, never in decode
+    assert mid[0] - before[0] == after[0] - mid[0] == 2 * cfg.n_layers + 1
+    assert mid[2] - before[2] == cfg.n_layers and after[2] == mid[2]
+    assert after[1] == before[1]
+    assert logits2.shape == (1, 1, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits2.float()).all())
+    assert caches["len"].tolist() == [101]

@@ -209,11 +209,16 @@ def test_attention_ref_matches_reference_ref(causal):
 
 
 def test_unported_kernels_raise_naming_the_roadmap():
+    """Flash attention (B.4) is the one kernel still to port; the SSD scan
+    (B.5) is ported and its parity tests are in test_torch_ssd.py."""
     x = torch.zeros(1, 1, 4, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP §B.4"):
         tops.attention(x, x, x, use_kernels=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP §B.5"):
-        tops.ssd_scan(x, x, x, x, x)
+    y, state = tops.ssd_scan(torch.zeros(1, 8, 4, 8), torch.zeros(1, 8, 4),
+                             torch.zeros(4), torch.zeros(1, 8, 1, 16),
+                             torch.zeros(1, 8, 1, 16), chunk=8,
+                             use_kernels=True)
+    assert y.shape == (1, 8, 4, 8) and state.shape == (1, 4, 8, 16)
 
 
 def test_wrappers_refuse_tensors_that_are_neither_cpu_nor_cuda():

@@ -18,6 +18,16 @@ Tolerances, and why:
   with ``atol=1e-6`` for values that round to about zero.
 * bfloat16 model: ``tests/test_kernels.py``'s bfloat16 tolerance,
   ``atol=rtol=3e-2``, for the logits and the caches alike.
+
+The Mamba-2 (ssm) smoke model is held the same way, with its conv
+windows and float32 SSD states in place of the KV caches, and at prompt
+lengths the reference's cached prefill refuses (not a multiple of
+``ssm_chunk``) against the reference's forward without a cache.  Its
+bfloat16 logits (|logit| up to about 4, where one bfloat16 ulp is 2**-5)
+are held at two bfloat16 ulps at their largest size, ``atol=2**-4``:
+the reference's own jitted forward differs from the same forward run
+eagerly by 0.043 there (XLA fuses bfloat16 ops and rounds at other
+places), while the port follows the eager one op by op.
 """
 
 import dataclasses
@@ -42,6 +52,7 @@ from repro_torch.models import (forward, init_caches, init_params,  # noqa: E402
 from repro_torch.models import params as tparams  # noqa: E402
 
 ARCH = "smollm-135m"
+SSM_ARCH = "mamba2-780m"
 BF16_ULP = 2.0 ** -7
 
 
@@ -213,10 +224,165 @@ def test_configs_registry():
         == same
     assert all(getattr(full, n) == getattr(ref, n) for n in same)
     assert full.use_kernels is True
-    assert tconfigs.ARCH_IDS == [ARCH]
+    assert tconfigs.ARCH_IDS == [ARCH, SSM_ARCH]
     with pytest.raises(KeyError, match="ROADMAP A.8"):
-        tconfigs.get_config("mamba2-780m")
+        tconfigs.get_config("zamba2-7b")
     with pytest.raises(KeyError, match="unknown"):
         tconfigs.get_config("gpt-9")
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         model_defs(dataclasses.replace(full, act="gelu"))
+
+
+# ---------------------------------------------------------------------------
+# the ssm family: mamba2-780m at its smoke config
+# ---------------------------------------------------------------------------
+
+SSM_LOGITS_BF16_ATOL = 2.0 ** -4      # two bf16 ulps at |logit| in [2, 4)
+SSM_CACHES = ("conv_x", "conv_B", "conv_C", "ssd")
+
+
+def _ssm_pair(dtype, kernels, seed=0):
+    jcfg = jconfigs.get_smoke(SSM_ARCH, dtype=dtype, use_pallas=kernels)
+    tcfg = tconfigs.get_smoke(SSM_ARCH, dtype=dtype, use_kernels=kernels)
+    jp = jinit_params(jcfg, jax.random.PRNGKey(seed))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+    return jcfg, tcfg, jp, tp
+
+
+def _ssm_logits_check(got, want, dtype):
+    if dtype == "float32":
+        _check(got, want, dtype, "logits")
+    else:
+        np.testing.assert_allclose(_np(got), _np(want), rtol=0,
+                                   atol=SSM_LOGITS_BF16_ATOL, err_msg="logits")
+
+
+def _ssm_cache_check(got, want, dtype):
+    """The conv windows (in the model's dtype once a forward has written
+    them, as the reference's scan returns them) and the float32 SSD
+    states: at the logits' float32 tolerance, or the bfloat16 one."""
+    for key in SSM_CACHES:
+        assert got[key].dtype == getattr(torch, str(want[key].dtype)), key
+        _check(got[key], want[key], dtype, "logits" if dtype == "float32"
+               else key)
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba2_prefill_and_decode_match_reference(dtype, kernels):
+    """A cached prefill of 16 tokens (two chunks) and four decode steps fed
+    the reference's greedy tokens: logits, conv windows, SSD states and
+    lengths against ``repro.models.forward``."""
+    jcfg, tcfg, jp, tp = _ssm_pair(dtype, kernels)
+    rng = np.random.default_rng(3)
+    B, S, max_seq = 2, 16, 32
+    toks = rng.integers(0, tcfg.vocab, (B, S)).astype(np.int32)
+    jc = jinit_caches(jcfg, B, max_seq)
+    tc = init_caches(tcfg, B, max_seq)
+    assert set(tc) == set(jc)
+    for key in tc:
+        assert tuple(tc[key].shape) == jc[key].shape, key
+        assert tc[key].dtype == getattr(torch, str(jc[key].dtype)), key
+    jl, _, jc = jforward(jp, jnp.asarray(toks), jcfg, BASELINE_RULES,
+                         caches=jc, mode="prefill")
+    tl, _, tc = forward(tp, torch.from_numpy(toks).long(), tcfg,
+                        caches=tc, mode="prefill")
+    _ssm_logits_check(tl, jl, dtype)
+    _ssm_cache_check(tc, jc, dtype)
+    for step in range(4):
+        nxt = np.asarray(jnp.argmax(jl[:, -1], axis=-1)).astype(np.int32)
+        jl, _, jc = jforward(jp, jnp.asarray(nxt[:, None]), jcfg,
+                             BASELINE_RULES, caches=jc, mode="decode")
+        tl, _, tc = forward(tp, torch.from_numpy(nxt[:, None]).long(), tcfg,
+                            caches=tc, mode="decode")
+        assert tl.dtype == getattr(torch, dtype)
+        _ssm_logits_check(tl, jl, dtype)
+    assert tc["len"].tolist() == np.asarray(jc["len"]).tolist() == [20, 20]
+    _ssm_cache_check(tc, jc, dtype)
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+@pytest.mark.parametrize("plen", [1, 2, 5, 13])
+def test_mamba2_short_and_ragged_prefill_continue_the_sequence(plen, kernels):
+    """A cached prefill of ``plen`` tokens (a ragged last chunk: taken as
+    it is by the kernel, padded with dt = 0 for the ref; or shorter than
+    the conv window) then three decode steps give
+    the logits that the reference's forward without a cache gives over
+    the whole sequence, position by position."""
+    jcfg, tcfg, jp, tp = _ssm_pair("float32", kernels, seed=4)
+    rng = np.random.default_rng(plen)
+    seq = rng.integers(0, tcfg.vocab, (2, plen + 3)).astype(np.int32)
+    want, _, _ = jforward(jp, jnp.asarray(seq), jcfg, BASELINE_RULES,
+                          mode="train")
+    tc = init_caches(tcfg, 2, 32)
+    tl, _, tc = forward(tp, torch.from_numpy(seq[:, :plen]).long(), tcfg,
+                        caches=tc, mode="prefill")
+    _check(tl, want[:, :plen], "float32", "logits")
+    for i in range(plen, plen + 3):
+        tl, _, tc = forward(tp, torch.from_numpy(seq[:, i:i + 1]).long(),
+                            tcfg, caches=tc, mode="decode")
+        _check(tl, want[:, i:i + 1], "float32", "logits")
+    assert tc["len"].tolist() == [plen + 3] * 2
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+def test_mamba2_forward_without_cache(kernels):
+    jcfg, tcfg, jp, tp = _ssm_pair("float32", kernels, seed=5)
+    toks = np.random.default_rng(5).integers(0, 512, (2, 12)).astype(np.int32)
+    jl, _, _ = jforward(jp, jnp.asarray(toks), jcfg, BASELINE_RULES,
+                        mode="train")
+    tl, _, nc = forward(tp, torch.from_numpy(toks).long(), tcfg)
+    assert nc is None
+    _check(tl, jl, "float32", "logits")
+
+
+@pytest.mark.parametrize("smoke", [True, False])
+def test_mamba2_parameter_table_matches_reference(smoke):
+    get = "get_smoke" if smoke else "get_config"
+    jcfg = getattr(jconfigs, get)(SSM_ARCH)
+    tcfg = getattr(tconfigs, get)(SSM_ARCH)
+    jdefs = jax.tree.leaves_with_path(
+        jparams.model_defs(jcfg),
+        is_leaf=lambda x: isinstance(x, jparams.ParamDef))
+    flat = {}
+
+    def walk(t, path):
+        if isinstance(t, tparams.ParamDef):
+            flat[path] = t
+            return
+        for k, v in t.items():
+            walk(v, path + (k,))
+    walk(model_defs(tcfg), ())
+    assert len(flat) == len(jdefs)
+    for path, jd in jdefs:
+        td = flat[tuple(p.key for p in path)]
+        assert (td.shape, td.init, td.scale) == (jd.shape, jd.init, jd.scale)
+
+
+def test_mamba2_init_params_draw_the_reference_distributions():
+    tcfg = tconfigs.get_smoke(SSM_ARCH)
+    a = init_params(tcfg, torch.Generator().manual_seed(3))
+    b = init_params(tcfg, torch.Generator().manual_seed(3))
+    mix = a["layers"]["mixer"]
+    assert torch.equal(mix["w_x"], b["layers"]["mixer"]["w_x"])
+    assert mix["A_log"].shape == (2, tcfg.ssm_heads)
+    assert bool(((mix["A_log"] >= -1.5) & (mix["A_log"] <= -0.5)).all())
+    dt = torch.nn.functional.softplus(mix["dt_bias"])
+    assert bool(((dt >= 1e-3 - 1e-6) & (dt <= 1e-1 + 1e-6)).all())
+    assert torch.all(mix["conv_x_b"] == 0) and torch.all(mix["D"] == 1)
+    assert "unembed" in a and a["unembed"].shape == (64, 512)
+
+
+def test_mamba2_config_and_cache_axes_are_the_reference_ones():
+    from repro.models import cache_logical_axes as jaxes
+    from repro_torch.models import cache_logical_axes as taxes
+    full, ref = tconfigs.get_config(SSM_ARCH), jconfigs.get_config(SSM_ARCH)
+    assert (full.family, full.n_layers, full.d_model, full.ssm_inner,
+            full.ssm_heads, full.ssm_head_dim, full.ssm_state,
+            full.ssm_groups, full.ssm_conv, full.ssm_chunk, full.vocab) == \
+        ("ssm", 48, 1536, 3072, 48, 64, 128, 1, 4, 64, 50280)
+    same = {f.name for f in dataclasses.fields(ref)} - {"use_pallas"}
+    assert all(getattr(full, n) == getattr(ref, n) for n in same)
+    smoke, jsmoke = tconfigs.get_smoke(SSM_ARCH), jconfigs.get_smoke(SSM_ARCH)
+    assert all(getattr(smoke, n) == getattr(jsmoke, n) for n in same)
+    assert taxes(smoke) == {k: tuple(v) for k, v in jaxes(jsmoke).items()}

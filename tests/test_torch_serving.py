@@ -537,3 +537,182 @@ def test_step_functions_are_the_forward():
         tp, {"tokens": last.argmax(-1)[:, None]}, caches)
     assert tok.dtype == torch.int32 and tok.shape == (2,)
     assert caches["len"].tolist() == [8, 8]
+
+
+# ---------------------------------------------------------------------------
+# the ssm family (mamba2-780m smoke) through TorchExecutor
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2-780m"
+
+
+def _ssm_params(dtype, seed):
+    jcfg = jconfigs.get_smoke(SSM_ARCH, dtype=dtype)
+    tcfg = tconfigs.get_smoke(SSM_ARCH, dtype=dtype)
+    jp = jinit_params(jcfg, jax.random.PRNGKey(seed))
+    return jcfg, tcfg, jp, params_from_jax(jax.tree.map(np.asarray, jp),
+                                           tcfg)
+
+
+def _same_or_near_tie(got, want, prompt, logits_of, tol):
+    """``got`` equals ``want``, or the two part at a step where the logits
+    behind ``want`` (``logits_of(tokens)`` over the prompt and ``want``'s
+    tokens before it, no cache) put their top two within ``tol``: there
+    two frameworks, or two formulations of one scan, may rightly pick
+    different tokens."""
+    assert len(got) == len(want)
+    if got == want:
+        return
+    k = next(j for j, (a, b) in enumerate(zip(want, got)) if a != b)
+    top2 = np.sort(logits_of(list(prompt) + list(want[:k]))[-1])[-2:]
+    assert top2[1] - top2[0] < tol, (list(prompt), k, want, got)
+
+
+def _port_logits(tcfg, tp):
+    def run(seq):
+        with torch.inference_mode():
+            logits, _, _ = forward(tp, torch.tensor([seq]), tcfg)
+        return logits[0].float().numpy()
+    return run
+
+
+def _ref_logits(jcfg, jp):
+    def run(seq):
+        logits, _, _ = jforward(jp, jnp.asarray([seq], jnp.int32), jcfg,
+                                BASELINE_RULES, mode="train")
+        return np.asarray(logits[0].astype(jnp.float32))
+    return run
+
+
+def _greedy(logits_of, prompt, n):
+    """The teacher-forced stream: each next token the greedy pick of a
+    forward without a cache over everything so far."""
+    toks = [int(t) for t in prompt]
+    for _ in range(n):
+        toks.append(int(np.argmax(logits_of(toks)[-1])))
+    return toks[len(prompt):]
+
+
+@pytest.mark.parametrize("plen", [1, 2, 5, 8, 13])
+def test_mamba2_served_streams_equal_teacher_forced(plen):
+    """The engine prefills each prompt at its exact length and decodes
+    from the state it leaves: the streams equal the teacher-forced
+    forward without a cache, the port's own and the reference's
+    (float32, where the two differ by rounding only)."""
+    jcfg, tcfg, jp, tp = _ssm_params("float32", 2)
+    prompt = np.random.default_rng(100 + plen).integers(
+        0, tcfg.vocab, plen).astype(np.int32)
+    eng = _cpu_engine(tcfg, tp, 2, 64)
+    req = tserving.Request(prompt=prompt.copy(), max_new_tokens=5)
+    eng.generate([req])
+    assert req.done and len(req.out_tokens) == 5
+    st = eng.compile_stats
+    assert st["prefill_calls"] == 1 and st["prefill_shapes"] == 1
+    port, ref = _port_logits(tcfg, tp), _ref_logits(jcfg, jp)
+    _same_or_near_tie(req.out_tokens, _greedy(port, prompt, 5), prompt,
+                      port, 1e-5)
+    _same_or_near_tie(req.out_tokens, _greedy(ref, prompt, 5), prompt, ref,
+                      1e-5)
+
+
+def test_mamba2_streams_do_not_depend_on_co_tenants():
+    _, tcfg, _, tp = _ssm_params("bfloat16", 3)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, tcfg.vocab, int(n)).astype(np.int32)
+               for n in (3, 9, 1, 6)]
+    budgets = [4, 3, 5, 2]
+    alone = []
+    for p, m in zip(prompts, budgets):
+        r = tserving.Request(prompt=p.copy(), max_new_tokens=m)
+        _cpu_engine(tcfg, tp, 2, 32).generate([r])
+        alone.append(r.out_tokens)
+    eng = _cpu_engine(tcfg, tp, 2, 32)
+    reqs = [tserving.Request(prompt=p.copy(), max_new_tokens=m)
+            for p, m in zip(prompts, budgets)]
+    pending = list(reqs)
+    while pending or eng.scheduler_stats["waiting"] or \
+            eng.scheduler_stats["running"]:
+        if pending:
+            eng.submit(pending.pop(0))
+        eng.step()
+    assert [r.out_tokens for r in reqs] == alone
+
+
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2.0 ** -4),
+                                       ("float32", 1e-5)])
+def test_mamba2_torch_executor_matches_jax_executor(dtype, tol):
+    """Only on prompts whose length is its own bucket and a multiple of
+    ``ssm_chunk`` (8 and 16): elsewhere the reference's padded prefill
+    folds its padding into the state (ROADMAP C.5).  A near-tie of the
+    reference's top two logits (within the model tests' logits
+    tolerance) may part the streams."""
+    jcfg, tcfg, jp, tp = _ssm_params(dtype, 1)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, tcfg.vocab, int(n)).astype(np.int32)
+               for n in (8, 16, 8)]
+    budgets = [5, 4, 6]
+
+    def serve(eng, Request):
+        reqs = [Request(prompt=p.copy(), max_new_tokens=m)
+                for p, m in zip(prompts, budgets)]
+        pending = list(reqs)
+        while pending or eng.scheduler_stats["waiting"] or \
+                eng.scheduler_stats["running"]:
+            if pending and eng.current_step % 2 == 0:
+                eng.submit(pending.pop(0))
+            eng.step()
+        return [r.out_tokens for r in reqs]
+
+    jeng = jserving.ServingEngine(jcfg, jp, BASELINE_RULES, batch_slots=2,
+                                  max_seq=32, context=jrt.Context())
+    assert all(jeng._exec.bucket(len(p)) == len(p) for p in prompts)
+    ref = serve(jeng, jserving.Request)
+    got = serve(_cpu_engine(tcfg, tp, 2, 32), tserving.Request)
+    for p, r_stream, t_stream in zip(prompts, ref, got):
+        _same_or_near_tie(t_stream, r_stream, p, _ref_logits(jcfg, jp), tol)
+
+
+@pytest.mark.parametrize("arch", [ARCH, SSM_ARCH])
+def test_cache_bytes_equal_the_jax_executors(arch):
+    """The page sizing reads ``cache_bytes``: it is the sum over every
+    cache leaf, as the reference's, for either family."""
+    jcfg, tcfg = jconfigs.get_smoke(arch), tconfigs.get_smoke(arch)
+    tp = init_params(tcfg, torch.Generator().manual_seed(0))
+    tex = tserving.TorchExecutor(tcfg, tp, batch_slots=2, max_seq=16)
+    jex = jexecutor.JaxExecutor(jcfg, jinit_params(jcfg,
+                                                   jax.random.PRNGKey(0)),
+                                BASELINE_RULES, batch_slots=2, max_seq=16)
+    for batch, seq in ((1, 16), (3, 64), (8, 2048)):
+        assert tex.cache_bytes(batch, seq) == jex.cache_bytes(batch, seq), \
+            (arch, batch, seq)
+    st = tex.init_state()
+    assert tex.cache_bytes(2, 16) == sum(t.numel() * t.element_size()
+                                         for t in st.values())
+
+
+def test_mamba2_executor_prefills_at_the_exact_length():
+    _, tcfg, _, _ = _ssm_params("bfloat16", 0)
+    tp = init_params(tcfg, torch.Generator().manual_seed(0))
+    ex = tserving.TorchExecutor(tcfg, tp, batch_slots=3, max_seq=16)
+    st = ex.init_state()
+    assert st["ssd"].shape == (2, 3, 8, 16, 16)
+    assert st["ssd"].dtype == torch.float32
+    assert st["conv_x"].shape == (2, 3, 3, 128)
+    for n in (3, 5, 3, 9):
+        frag, tok = ex.prefill(np.arange(n, dtype=np.int32) + 1, 0)
+        assert frag["len"].tolist() == [n] and 0 <= tok < tcfg.vocab
+    assert ex.compile_stats()["prefill_shapes"] == 3     # 3, 5 and 9
+    st = ex.insert(st, frag, 2)
+    assert st["len"].tolist() == [0, 0, 9]
+    assert torch.equal(st["ssd"][:, 2], frag["ssd"][:, 0])
+    st, out = ex.decode(st, np.array([0, 0, tok]),
+                        np.array([False, False, True]))
+    assert st["len"].tolist() == [0, 0, 10] and out.shape == (3,)
+
+
+def test_serve_cli_mamba2_on_cpu(capsys):
+    out = tserve.main(["--arch", SSM_ARCH, "--smoke", "--device", "cpu",
+                       "--requests", "3", "--max-new", "4"])
+    assert len(out["done"]) == 3 and all(r.done for r in out["done"])
+    assert out["device"] == "cpu"
+    assert capsys.readouterr().out.startswith("served 3 requests")
