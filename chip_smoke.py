@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``src/repro_torch``) on one card.
 
-Drives the port's three paths and checks every result: the kernel
+Drives the port's four paths and checks every result: the kernel
 compiler's launch path — KernelBuilder DSL -> IR -> PassManager ->
 WorkGroupPlan -> the hand-written ``cuda`` work-group target -> Context /
-Program / Kernel launch — and two serving paths — ``repro_torch.launch.
+Program / Kernel launch — two serving paths — ``repro_torch.launch.
 serve`` -> ``ServingEngine`` -> ``TorchExecutor`` -> the smollm-135m model
 at its full published width, through the hand-written CUDA ``rmsnorm``
 and ``decode_attention`` kernels, and the mamba2-780m model at its full
 published width, through ``rmsnorm`` and the hand-written CUDA
-``ssd_scan``.  Each phase prints one JSON line; any mismatch, build error
+``ssd_scan`` — and training: ``repro_torch.launch.train`` -> ``Trainer``
+-> ``loss_fn`` -> smollm-135m at full width, through ``rmsnorm`` and the
+hand-written CUDA ``flash_attention`` in the forward, with the blocked
+backward behind it.  Each phase prints one JSON line; any mismatch, build error
 or launch error raises and the script exits non-zero.
 
   1. device: the card, torch/CUDA versions, and one parallel ``nvcc``
@@ -83,7 +86,30 @@ or launch error raises and the script exits non-zero.
      version given s - 1 steps; then timed like phase 5 beside the plain
      version's time and the bound (no single PyTorch call computes the
      scan, so no library time);
- 10. the kernels line, then the card's name and power limit, then the
+ 10. ``flash_attention`` against its plain version, causal, at the
+     training shape (8 x 9 heads over 3 KV heads x 2048 x 64, bfloat16),
+     at D 128 with GQA, with Sq < Sk and at a ragged length in float32:
+     the output and lse within ``FLASH_F32_TOL`` (float32) and one
+     bfloat16 ulp for a bfloat16 output; then timed like phase 5 beside
+     the plain version, the bound (both products at the bf16 tensor-core
+     peak for a bfloat16 call, the FP32 peak for a float32 one) and
+     ``scaled_dot_product_attention`` (causal, ``enable_gqa=True``),
+     which the port never calls;
+ 11. training (main path): ``repro_torch.launch.train`` trains
+     smollm-135m at full width (random weights from seed 0, the
+     synthetic stream) for 20 steps of 8 x 2048 tokens with per-block
+     remat, bf16 compute over f32 master weights: the loss of every
+     step, which must fall by ``LOSS_DROP`` nats from step 0 to the mean
+     of the last five, the median step time, tokens/s, peak memory, the
+     launches per step (flash attention must run 60 times a step: 30
+     layers, forward and recompute), and one more step profiled as in
+     phase 6;
+ 12. the gradient check: one float32 step at full width (2 x 2048), the
+     loss and every gradient leaf through the kernels against the same
+     step through their plain versions, within ``GRAD_REL_TOL`` of each
+     leaf's largest entry, a limit that the plain run with the causal
+     mask shifted by one key must fail;
+ 13. the kernels line, then the card's name and power limit, then the
      result line.
 
 Launch counts are set to 0 just before each main-path phase and read
@@ -119,6 +145,8 @@ MODEL_KERNELS = {   # name -> (source, the TPU kernel it replaces)
                          "src/repro/kernels/decode_attention.py:68"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:74"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:91"),
 }
 
 # phase 6: the serving run (through repro_torch.launch.serve)
@@ -169,6 +197,36 @@ SSD_CASES = [(1, 512, 48, 64, 1, 128, 64), (4, 2048, 48, 64, 1, 128, 64),
 SSD_F32_TOL = {"rtol": 1e-5, "atol": 1e-5}
 SSD_Y_BF16_TOL = {"rtol": 2.0 ** -7, "atol": 1e-6}
 
+# phase 10: flash attention cases, causal, ((B, H, Hkv, Sq, Sk, D), dtype):
+# the training shape first (its time is the kernels line's), then D = 128
+# with GQA, Sq < Sk (the query block aligned to the key tail), and a
+# ragged length in float32.  Both sides compute in float32 and differ in
+# summation order and exp only: a float32 output and the lse within 1e-5;
+# a bfloat16 output is rounded once, so one bfloat16 ulp
+FLASH_CASES = [((8, 9, 3, 2048, 2048, 64), "bfloat16"),
+               ((2, 16, 4, 1024, 1024, 128), "bfloat16"),
+               ((4, 9, 3, 512, 2048, 64), "bfloat16"),
+               ((2, 9, 3, 1000, 1000, 64), "float32")]
+FLASH_F32_TOL = {"rtol": 1e-5, "atol": 1e-5}
+FLASH_BF16_TOL = {"rtol": 2.0 ** -7, "atol": 1e-5}
+
+# phase 11: training smollm-135m at full width (through
+# repro_torch.launch.train): 16,384 tokens a step at the published
+# context, per-block remat, bf16 compute over f32 master weights; the
+# warmup is min(100, steps) = 20, as launch/train.py sets it
+TRAIN = {"arch": "smollm-135m", "steps": 20, "batch": 8, "seq": 2048,
+         "remat": "block", "lr": 3e-4, "seed": 0}
+LOSS_DROP = 1.0             # nats, step 0 against the mean of the last 5
+# phase 12: one step at full width in float32, batch 2 x 2048: the loss
+# and every gradient leaf, kernels against their plain versions.  Both
+# sides compute in float32 and differ in summation order and exp only;
+# the gradients carry that through 30 layers' backward.  The limit is on
+# max|kernels - plain| / max|plain| per leaf, and a planted fault (the
+# causal mask shifted by one key) must fail it
+GRAD_CHECK = {"arch": "smollm-135m", "batch": 2, "seq": 2048, "seed": 1}
+GRAD_REL_TOL = 1e-3
+LOSS_REL_TOL = 1e-5
+
 # phase 5: real problem sizes and the configuration each runs with
 REAL = [
     ("gemm", {"m": 2048, "n": 2048, "k": 2048}, {"ts": 16, "unroll": 16}),
@@ -211,15 +269,41 @@ def plain_kernels():
     """Run the model with each kernel's plain version in its wrapper's
     place (for the comparison only: the plain versions count no
     launches)."""
-    from repro_torch.kernels import decode_attention as da, rmsnorm as rn, \
-        ssd_scan as ss
-    saved = rn.rmsnorm, da.decode_attention, ss.ssd_scan
-    rn.rmsnorm, da.decode_attention, ss.ssd_scan = rn.rmsnorm_plain, \
-        da.decode_attention_plain, ss.ssd_scan_plain
+    from repro_torch.kernels import decode_attention as da, \
+        flash_attention as fa, rmsnorm as rn, ssd_scan as ss
+    saved = rn.rmsnorm, da.decode_attention, ss.ssd_scan, fa.flash_attention
+    rn.rmsnorm, da.decode_attention, ss.ssd_scan, fa.flash_attention = \
+        rn.rmsnorm_plain, da.decode_attention_plain, ss.ssd_scan_plain, \
+        fa.flash_attention_plain
     try:
         yield
     finally:
-        rn.rmsnorm, da.decode_attention, ss.ssd_scan = saved
+        rn.rmsnorm, da.decode_attention, ss.ssd_scan, fa.flash_attention = \
+            saved
+
+
+@contextlib.contextmanager
+def causal_mask_shifted():
+    """Run the model with the plain versions and flash attention given
+    the last key once more at the end, so that the causal mask, aligned
+    to the key tail, lets every row see one key past its own (for the
+    check that the gradient limit sees it); forward and backward alike."""
+    import torch
+    from repro_torch.models import flash as mf
+    real = mf.FlashAttention
+
+    class Shifted:
+        @staticmethod
+        def apply(q, k, v, *args):
+            return real.apply(q, torch.cat([k, k[:, :, -1:]], 2),
+                              torch.cat([v, v[:, :, -1:]], 2), *args)
+
+    with plain_kernels():
+        mf.FlashAttention = Shifted
+        try:
+            yield
+        finally:
+            mf.FlashAttention = real
 
 
 @contextlib.contextmanager
@@ -260,8 +344,9 @@ def decode_lengths_shifted(shift):
 def _profiled(torch, fn, steps):
     """``fn`` run ``steps`` times under ``torch.profiler``: the device's
     busy time (the sum of the kernels' own device times) against the wall
-    time, the kernel launches per step, and the kernels that take the
-    most device time."""
+    time, the kernel launches per step, the kernels that take the most
+    device time, and the operators whose own kernels do (PyTorch's
+    generic elementwise kernels name no operator)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -275,15 +360,24 @@ def _profiled(torch, fn, steps):
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    by_name = {}            # names cut to 60 characters, their times summed
+    for e in kernels:
+        by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) \
+            + e.self_device_time_total
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    ops = sorted((e for e in prof.key_averages()
+                  if not str(e.device_type).endswith("CUDA")
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:10]
     return {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
             "device_busy_ms_per_step": busy_us / steps / 1e3,
             "device_idle_share": 1.0 - busy_us / wall_us,
             "kernel_launches_per_step": sum(e.count for e in kernels)
             / steps,
-            "top_kernels_ms_per_step": {
-                e.key[:60]: e.self_device_time_total / steps / 1e3
-                for e in top}}
+            "top_kernels_ms_per_step": {k: us / steps / 1e3
+                                        for k, us in top},
+            "top_ops_device_ms_per_step": {
+                e.key: e.self_device_time_total / steps / 1e3 for e in ops}}
 
 
 def profile_decode(torch, forward, init_caches, cfg, params, toks, max_seq,
@@ -712,6 +806,191 @@ def ssm_serve_phase(torch, np, time_ms):
              "bound_by": main_case["bound_by"], "library_ms": None}]
 
 
+def flash_flops_bytes(B, H, Hkv, Sq, Sk, D, esize):
+    """Causal flash attention's work for these inputs, as (flops, bytes).
+    Flops: the two products over the (query, key) pairs the mask lets
+    through, row i seeing min(max(i + Sk - Sq + 1, 0), Sk) keys, two
+    operations per multiply-add.  Bytes: q, k, v read once and o written
+    once in their dtype, the float32 lse written once."""
+    rows = [min(max(i + Sk - Sq + 1, 0), Sk) for i in range(Sq)]
+    flops = 2.0 * 2.0 * B * H * D * sum(rows)
+    nbytes = (2 * B * H * Sq * D + 2 * B * Hkv * Sk * D) * esize \
+        + 4 * B * H * Sq
+    return flops, nbytes
+
+
+def flash_phase(torch, np, time_ms, dev):
+    """Phase 10: flash attention against its plain version at
+    :data:`FLASH_CASES`, timed like phase 5 beside the plain version, the
+    bound and ``scaled_dot_product_attention`` (the causal mask aligned
+    to the key tail, GQA by ``enable_gqa``), which the port never calls.
+    Returns the cases."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    cases = []
+    for i, ((B, H, Hkv, Sq, Sk, D), dt) in enumerate(FLASH_CASES):
+        dtype = getattr(torch, dt)
+        rng = np.random.default_rng(20 + i)
+
+        def t(shape):
+            return torch.tensor(rng.standard_normal(shape),
+                                dtype=torch.float32, device=dev).to(dtype)
+        q, k, v = t((B, H, Sq, D)), t((B, Hkv, Sk, D)), t((B, Hkv, Sk, D))
+        o, lse = flash_attention(q, k, v, causal=True)
+        po, plse = flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+        torch.testing.assert_close(o.float(), po.float(), **tol)
+        torch.testing.assert_close(lse, plse, **FLASH_F32_TOL)
+        o_err = float((o.float() - po.float()).abs().max())
+        lse_err = float((lse - plse).abs().max())
+        del po, plse
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
+        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True),
+                           reps=3, warmup=1)
+        mask = None if Sq == Sk else \
+            (torch.arange(Sk, device=dev)[None, :]
+             <= torch.arange(Sq, device=dev)[:, None] + (Sk - Sq))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=True))
+        flops, nbytes = flash_flops_bytes(B, H, Hkv, Sq, Sk, D,
+                                          q.element_size())
+        bms, by = bound(0.0, nbytes, flops) if dtype == torch.bfloat16 \
+            else bound(flops, nbytes)
+        cases.append({"shape": [B, H, Hkv, Sq, Sk, D], "dtype": dt,
+                      "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bms, "bound_by": by,
+                      "fraction_of_bound": bms / ms, "flops": flops,
+                      "bytes": nbytes, "o_err": o_err, "lse_err": lse_err,
+                      "blocks": B * H * ((Sq + 63) // 64)})
+        del q, k, v, o, lse
+    emit(10, kernel="flash_attention", cases=cases,
+         tol={"float32": FLASH_F32_TOL, "bfloat16": FLASH_BF16_TOL},
+         library="scaled_dot_product_attention(enable_gqa=True), causal "
+                 "aligned to the key tail")
+    return cases
+
+
+def train_phase(torch, np):
+    """Phase 11 (main path): ``repro_torch.launch.train`` at :data:`TRAIN`,
+    with the launch counts of its kernels, the loss of every step, the
+    median step time, tokens/s and peak memory; then one more step
+    profiled (:func:`_profiled`).  Returns the launch counts."""
+    from repro_torch.data import data_iterator
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import train
+
+    argv = ["--arch", TRAIN["arch"], "--steps", str(TRAIN["steps"]),
+            "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]),
+            "--remat", TRAIN["remat"], "--lr", str(TRAIN["lr"]),
+            "--log-every", "1", "--seed", str(TRAIN["seed"])]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log = io.StringIO()
+    for k in KERNELS:
+        k.launches = 0
+    with contextlib.redirect_stdout(log):
+        run = train.main(argv)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    trainer, steps = run["trainer"], TRAIN["steps"]
+    cfg = trainer.cfg
+    assert trainer.device.type == "cuda", trainer.device
+    losses = [h["loss"] for h in run["history"]]
+    assert len(losses) == steps and all(math.isfinite(x) for x in losses), \
+        losses
+    drop = losses[0] - sum(losses[-5:]) / 5
+    it = data_iterator(cfg, TRAIN["batch"], TRAIN["seq"], start_step=steps,
+                       seed=TRAIN["seed"])
+    prof = _profiled(torch, lambda: trainer.run(it, 1), 1)
+    it.close()
+    emit(11, path="repro_torch.launch.train", train=TRAIN,
+         config={"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                 "n_heads": cfg.n_heads, "n_kv": cfg.n_kv,
+                 "head_dim": cfg.hd, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                 "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+                 "remat": cfg.remat, "use_kernels": cfg.use_kernels},
+         losses=losses, loss_drop=drop,
+         grad_norms=[h["grad_norm"] for h in run["history"]],
+         lrs=[h["lr"] for h in run["history"]],
+         step_s=run["step_seconds"], step_median_s=run["step_median_s"],
+         tokens_per_step=run["tokens_per_step"],
+         tokens_per_s=run["tokens_per_s"], wall_s=run["wall_s"],
+         peak_memory_gb=peak / 1e9, launches=launches,
+         launches_per_step={k: v / steps for k, v in launches.items()},
+         summary=log.getvalue().splitlines()[:3], step_profile=prof)
+    assert launches["flash_attention"] == 2 * cfg.n_layers * steps, \
+        ("flash attention is launched once per layer in the forward and "
+         "once in its recompute", launches)
+    assert launches["rmsnorm"] > 0, launches
+    assert drop >= LOSS_DROP, ("the loss did not fall", losses[0], drop)
+    del run, trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def grad_check_phase(torch, np, dev):
+    """Phase 12: the loss and every gradient leaf of one float32 step at
+    full width (:data:`GRAD_CHECK`), kernels against their plain versions,
+    and the planted fault of :func:`causal_mask_shifted`."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data import synth_batch
+    from repro_torch.models import init_params, loss_fn
+
+    cfg = dataclasses.replace(configs.get_config(GRAD_CHECK["arch"]),
+                              dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(
+        GRAD_CHECK["seed"]), device=dev)
+    batch = {k: torch.tensor(v, dtype=torch.int64, device=dev)
+             for k, v in synth_batch(cfg, GRAD_CHECK["batch"],
+                                     GRAD_CHECK["seq"], 0,
+                                     GRAD_CHECK["seed"]).items()}
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree)
+                    for x in leaves(tree[k], f"{path}/{k}")]
+        return [(path, tree)]
+    flat = leaves(params)
+    for _, p in flat:
+        p.requires_grad_(True)
+
+    def run(ctx):
+        with ctx():
+            loss, _ = loss_fn(params, batch, cfg)
+            grads = torch.autograd.grad(loss, [p for _, p in flat])
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads
+
+    k_loss, k_grads = run(contextlib.nullcontext)
+    p_loss, p_grads = run(plain_kernels)
+    f_loss, f_grads = run(causal_mask_shifted)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    kernels = {path: rel(a, b)
+               for (path, _), a, b in zip(flat, k_grads, p_grads)}
+    fault = {path: rel(a, b)
+             for (path, _), a, b in zip(flat, f_grads, p_grads)}
+    emit(12, check="gradients, kernels vs plain", config=GRAD_CHECK,
+         dtype=cfg.dtype, loss={"kernels": k_loss, "plain": p_loss,
+                                "causal_mask_shifted": f_loss},
+         grad_rel_err=kernels, fault_grad_rel_err=fault,
+         grad_rel_tol=GRAD_REL_TOL, loss_rel_tol=LOSS_REL_TOL)
+    assert abs(k_loss - p_loss) <= LOSS_REL_TOL * abs(p_loss), \
+        ("loss, kernels vs plain", k_loss, p_loss)
+    assert max(kernels.values()) <= GRAD_REL_TOL, \
+        ("gradients, kernels vs plain", kernels)
+    assert max(fault.values()) > GRAD_REL_TOL, \
+        ("the gradient limit does not see a causal mask shifted by one key",
+         fault)
+    del params, k_grads, p_grads, f_grads
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -968,8 +1247,23 @@ def main() -> int:
 
     # -- 8. serving mamba2-780m at full width (main path) ----------------------------
     entries += ssm_serve_phase(torch, np, time_ms)
+    torch.cuda.empty_cache()
 
-    # -- 10. kernels line, card, result --------------------------------------------
+    # -- 10-12. flash attention, training (main path), the gradient check ----------
+    flash_cases = flash_phase(torch, np, time_ms, dev)
+    train_launches = train_phase(torch, np)
+    grad_check_phase(torch, np, dev)
+    main_case = flash_cases[0]            # the training shape, bfloat16
+    entries.append({
+        "name": "flash_attention", "source": MODEL_KERNELS["flash_attention"][0],
+        "replaces": MODEL_KERNELS["flash_attention"][1],
+        "launches": train_launches["flash_attention"],
+        "max_abs_err": max(c["o_err"] for c in flash_cases),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"]})
+
+    # -- 13. kernels line, card, result --------------------------------------------
     print(json.dumps({"kernels": [
         {"name": e["name"], "route": "cuda",
          "source": e.get("source", KERNEL_SOURCE),

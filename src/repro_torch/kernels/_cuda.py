@@ -107,4 +107,13 @@ def check_cuda_tensor(name: str, t: torch.Tensor, device: torch.device,
         raise InvalidArgError(f"{name} is not contiguous")
 
 
-__all__ = ["CudaKernel", "DTYPE_CODES", "check_cuda_tensor"]
+def refuse_grad(name: str, tensors, why: str) -> None:
+    """Raise ``NotImplementedError`` when autograd would record a call of
+    a kernel that has no backward: grad mode is on and an input requires
+    grad.  The wrapper's output would otherwise come back with no
+    ``grad_fn`` and the gradient would stop there without a word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{name} has no backward: {why}")
+
+
+__all__ = ["CudaKernel", "DTYPE_CODES", "check_cuda_tensor", "refuse_grad"]

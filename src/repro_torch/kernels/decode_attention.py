@@ -18,7 +18,7 @@ import math
 import torch
 
 from ..core.errors import InvalidArgError
-from ._cuda import DTYPE_CODES, CudaKernel, check_cuda_tensor
+from ._cuda import DTYPE_CODES, CudaKernel, check_cuda_tensor, refuse_grad
 
 NEG_INF = -1e30
 BLOCK_K = 256                # the Pallas kernel's default key block
@@ -80,8 +80,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     CUDA tensors go to the kernel (checked for device, dtype, shape and
     contiguity first; anything else raises); CPU tensors go to
-    :func:`decode_attention_plain`."""
+    :func:`decode_attention_plain`.  It has no backward and refuses an
+    input that requires grad while grad mode is on."""
     tensors = (q, k_cache, v_cache, lengths)
+    refuse_grad("decode_attention", tensors,
+                "no training path runs decode attention; a backward waits "
+                "for one (ROADMAP §B.2)")
     if all(t.device.type == "cpu" for t in tensors):
         return decode_attention_plain(q, k_cache, v_cache, lengths)
     if q.device.type != "cuda":

@@ -1,11 +1,12 @@
 """Dispatch wrappers: hand-written CUDA kernel vs plain torch reference.
 
 The model stack calls these; ``use_kernels`` selects the kernels of this
-package (:mod:`.rmsnorm`, :mod:`.decode_attention`, :mod:`.ssd_scan`),
-whose wrappers launch the CUDA kernel for CUDA tensors and run its plain
-version for CPU tensors.  ``use_kernels=False`` selects :mod:`.ref`.  The
-Pallas flash attention of the reference has no port yet (ROADMAP §B.4),
-so asking for it raises.
+package (:mod:`.rmsnorm`, :mod:`.decode_attention`, :mod:`.ssd_scan`,
+:mod:`.flash_attention`), whose wrappers launch the CUDA kernel for CUDA
+tensors and run its plain version for CPU tensors.  ``use_kernels=False``
+selects :mod:`.ref`.  Attention with kernels goes through
+:class:`repro_torch.models.flash.FlashAttention`, the flash kernel's
+forward with the blocked backward of ``models/flash.py``.
 """
 
 from __future__ import annotations
@@ -16,11 +17,15 @@ from . import rmsnorm as _rms
 from . import ssd_scan as _ssd
 
 
-def attention(q, k, v, causal: bool = True, use_kernels: bool = False):
+def attention(q, k, v, causal: bool = True, use_kernels: bool = False,
+              block_q: int = 512, block_k: int = 1024):
+    """q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D).  With kernels, the
+    backward runs in ``(block_q, block_k)`` blocks; the reference ignores
+    the block sizes."""
     if use_kernels:
-        raise NotImplementedError(
-            "flash_attention has no CUDA kernel yet (ROADMAP §B.4); the "
-            "model's attention without a KV cache waits for it")
+        # imported here: repro_torch.models imports this package
+        from ..models.flash import FlashAttention
+        return FlashAttention.apply(q, k, v, causal, None, block_q, block_k)
     return ref.attention(q, k, v, causal=causal)
 
 

@@ -8,6 +8,13 @@ CPU tensors; :func:`rmsnorm_plain` computes what the Pallas kernel
 computes (``use_vml=True``, its default): the mean of squares in f32, the
 Newton rsqrt of :func:`repro_torch.vml.rsqrt`, the scaled row cast back to
 x's dtype.
+
+:func:`rmsnorm` is a ``torch.autograd.Function``: its forward is the
+kernel (or the plain version), its backward the analytic RMSNorm
+gradient in torch ops.  A wrapper that launched through ``ctypes`` and
+returned a fresh tensor would have no ``grad_fn``: a training forward on
+the card would give the norm weights no gradient and cut the chain at
+every block, without an error.
 """
 
 from __future__ import annotations
@@ -36,13 +43,11 @@ def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor,
     return (xf * r * w.to(torch.float32)[None, :]).to(x.dtype)
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor,
-            eps: float = 1e-6) -> torch.Tensor:
-    """x: (..., d) in float32 or bfloat16; w: (d,) in float32 or bfloat16.
-
-    CUDA tensors go to the kernel (checked for device, dtype, shape and
-    contiguity first; anything else raises); CPU tensors go to
-    :func:`rmsnorm_plain`."""
+def _rmsnorm_forward(x: torch.Tensor, w: torch.Tensor,
+                     eps: float) -> torch.Tensor:
+    """The kernel for CUDA tensors (checked for device, dtype, shape and
+    contiguity first; anything else raises), :func:`rmsnorm_plain` for
+    CPU tensors."""
     if x.device.type == "cpu" and w.device.type == "cpu":
         return rmsnorm_plain(x, w, eps)
     if x.device.type != "cuda":
@@ -61,4 +66,46 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-__all__ = ["KERNEL", "rmsnorm", "rmsnorm_plain"]
+class RMSNorm(torch.autograd.Function):
+    """y = x * rsqrt(mean(x²) + eps) * w with a gradient.
+
+    forward: :func:`_rmsnorm_forward`.  backward, in f32 with r =
+    rsqrt(mean(x²) + eps) and g the incoming gradient:
+    dw = Σ_rows g · x · r, and dx = r · (g·w − x · r² · mean(g·w·x)),
+    each cast to its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps: float = 1e-6):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rmsnorm_forward(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        f32 = torch.float32
+        xf, gf = x.to(f32), g.to(f32)
+        r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + ctx.eps)
+        gw = gf * w.to(f32)
+        dx = r * (gw - xf * (r * r)
+                  * torch.mean(gw * xf, dim=-1, keepdim=True))
+        dw = (gf * xf * r).reshape(-1, x.shape[-1]).sum(dim=0)
+        return dx.to(x.dtype), dw.to(w.dtype), None
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """x: (..., d) in float32 or bfloat16; w: (d,) in float32 or bfloat16.
+
+    CUDA tensors go to the kernel (checked for device, dtype, shape and
+    contiguity first; anything else raises); CPU tensors go to
+    :func:`rmsnorm_plain`.  Differentiable in x and w (:class:`RMSNorm`);
+    a call that records no gradient skips the ``autograd.Function``,
+    whose ``apply`` costs more host time than this launch-bound kernel
+    takes on the card."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return RMSNorm.apply(x, w, eps)
+    return _rmsnorm_forward(x, w, eps)
+
+
+__all__ = ["KERNEL", "RMSNorm", "rmsnorm", "rmsnorm_plain"]

@@ -27,7 +27,7 @@ import ctypes
 import torch
 
 from ..core.errors import InvalidArgError
-from ._cuda import DTYPE_CODES, CudaKernel, check_cuda_tensor
+from ._cuda import DTYPE_CODES, CudaKernel, check_cuda_tensor, refuse_grad
 
 MAX_CHUNK = 64               # the kernel's L x L tile of the decay matrix
 MAX_STATE = 256              # B and C chunks of L x N f32 in shared memory
@@ -101,8 +101,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     n <= :data:`MAX_STATE`; anything else raises.
 
     CUDA tensors go to the kernel; CPU tensors go to
-    :func:`ssd_scan_plain`."""
+    :func:`ssd_scan_plain`.  It has no backward and refuses an input
+    that requires grad while grad mode is on."""
     tensors = (x, dt, A, B, C)
+    refuse_grad("ssd_scan", tensors,
+                "the ssm family trains through ref.ssd_scan "
+                "(use_kernels=False); training it with kernels waits for "
+                "a backward (ROADMAP A.13)")
     if all(t.device.type == "cpu" for t in tensors):
         return ssd_scan_plain(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":

@@ -104,9 +104,14 @@ def attention(x, p: Params, cfg: ModelConfig, *, positions,
             new_cache = (k_cache, v_cache, lengths + S)
     else:
         if cfg.use_kernels and S <= 4096:
-            # the reference's Pallas branch (layers.py:130): its flash
-            # kernel has no port yet, so this raises (ROADMAP §B.4)
-            out = ops.attention(q, k, v, use_kernels=True)
+            # the reference's Pallas branch (layers.py:130), with its
+            # layout repaired (ROADMAP §C.2): the flash kernel takes
+            # (B, H, S, D), so q/k/v go over and the output comes back
+            out = ops.attention(
+                q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(), causal=True, use_kernels=True,
+                block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
+            ).transpose(1, 2)
         else:
             out = blocked_attention(q, k, v, causal=True,
                                     block_q=cfg.attn_block_q,

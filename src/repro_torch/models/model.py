@@ -2,20 +2,26 @@
 
 The port of those families of ``repro.models.model``: the compute-dtype
 cast of the parameters, the embedding and LM head, the backbones (a
-Python loop over the stacked layers where the reference scanned them),
-the forward entry point, and the caches.  Other families raise.
+Python loop over the stacked layers where the reference scanned them)
+with per-block remat in training (:func:`_maybe_remat`), the forward
+entry point, the training loss (:func:`loss_fn`), and the caches.  Other
+families raise.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Mapping, Optional, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..kernels.ref import matmul
 from . import layers
 from . import params as P
+from .blocked_ce import streaming_ce
 from .config import ModelConfig
 
 Params = Dict[str, Any]
@@ -62,6 +68,37 @@ def _layer(tree, i: int):
     return _tree_map(lambda x: x[i], tree)
 
 
+#: the products whose outputs ``remat="dots"`` keeps: matmuls without a
+#: batch dimension (the projections; torch folds a (B, S, d) @ (d, k)
+#: product into one ``mm``), as the reference's
+#: ``dots_with_no_batch_dims_saveable`` policy keeps them
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` (one block) checkpointed as ``cfg.remat`` asks: ``"block"``
+    and ``"full"`` save its inputs only and recompute it in the backward
+    (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` also saves the
+    outputs of its matmuls without a batch dimension and recomputes the
+    elementwise and norm chains; ``"none"`` saves everything.  Only while
+    grad mode is on: a forward with no backward has nothing to save."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "dots":
+        ctx_fn = functools.partial(create_selective_checkpoint_contexts,
+                                   _dots_policy)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=ctx_fn)
+    if cfg.remat in ("block", "full"):
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    raise ValueError(f"remat {cfg.remat!r}: none | block | full | dots")
+
+
 # ---------------------------------------------------------------------------
 # embedding / head
 # ---------------------------------------------------------------------------
@@ -89,11 +126,16 @@ def lm_head(params: Params, x, cfg: ModelConfig):
 # backbone
 # ---------------------------------------------------------------------------
 
-def _dense_backbone(params, x, cfg, *, positions, caches):
+def _dense_backbone(params, x, cfg, *, positions, caches, mode):
+    def block(x, lp):
+        return layers.attn_block(x, lp, cfg, positions=positions)[0]
+
+    if mode == "train":
+        block = _maybe_remat(block, cfg)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         if caches is None:
-            x, _ = layers.attn_block(x, lp, cfg, positions=positions)
+            x = block(x, lp)
         else:
             # caches["k"][i] is a view: the layer writes into the stacked
             # cache in place
@@ -106,14 +148,19 @@ def _dense_backbone(params, x, cfg, *, positions, caches):
                "len": caches["len"] + x.shape[1]}
 
 
-def _ssm_backbone(params, x, cfg, *, caches):
+def _ssm_backbone(params, x, cfg, *, caches, mode):
     """The Mamba-2 stack.  With caches, each layer's SSD state is written
     into ``caches["ssd"]`` in place (it is float32 in every model), while
     the conv windows come back stacked in the dtype the layers computed
     them in, as the reference's scan returns them."""
     if caches is None:
+        def block(x, lp):
+            return layers.mamba_block(x, lp, cfg)[0]
+
+        if mode == "train":
+            block = _maybe_remat(block, cfg)
         for i in range(cfg.n_layers):
-            x, _ = layers.mamba_block(x, _layer(params["layers"], i), cfg)
+            x = block(x, _layer(params["layers"], i))
         return x, None
     windows = ([], [], [])
     for i in range(cfg.n_layers):
@@ -144,9 +191,12 @@ def _check_family(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def forward(params: Params, tokens, cfg: ModelConfig, *, caches=None,
-            mode: str = "train"):
+            mode: str = "train", return_hidden: bool = False):
     """Returns (logits, moe_aux_loss, new_caches); the aux loss is 0 in the
-    dense and ssm families.
+    dense and ssm families.  With ``return_hidden`` the final-norm hidden
+    states replace the logits (the streaming-CE path computes the LM head
+    itself).  In ``mode="train"`` each block is checkpointed as
+    ``cfg.remat`` asks (:func:`_maybe_remat`).
 
     ``caches`` (from :func:`init_caches`) are updated in place: the
     returned dict holds the same K/V (dense) or SSD state (ssm) tensors,
@@ -162,12 +212,47 @@ def forward(params: Params, tokens, cfg: ModelConfig, *, caches=None,
 
     x = embed_tokens(params, tokens, cfg)
     if cfg.family == "ssm":
-        x, nc = _ssm_backbone(params, x, cfg, caches=caches)
+        x, nc = _ssm_backbone(params, x, cfg, caches=caches, mode=mode)
     else:
         x, nc = _dense_backbone(params, x, cfg, positions=positions,
-                                caches=caches)
+                                caches=caches, mode=mode)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return layers.norm(x, params["ln_f"], cfg), aux, nc
     return lm_head(params, x, cfg), aux, nc
+
+
+def loss_fn(params: Params, batch: Mapping[str, torch.Tensor],
+            cfg: ModelConfig, aux_weight: float = 0.01):
+    """Mean token cross-entropy of the training forward against
+    ``batch["targets"]``, plus ``aux_weight`` times the MoE aux loss.
+    Returns (loss, {"ce", "aux", "ppl"}), all float32 scalars.
+
+    The logits are taken to float32 before the logsumexp, as in the
+    reference; with ``cfg.use_streaming_ce`` the fused, vocab-chunked CE
+    of :mod:`.blocked_ce` replaces the full logits."""
+    tokens, targets = batch["tokens"], batch["targets"]
+    if cfg.use_streaming_ce:
+        hidden, aux, _ = forward(params, tokens, cfg, mode="train",
+                                 return_hidden=True)
+        cparams = _cast(params, cfg)
+        w = cparams["unembed"] if "unembed" in cparams \
+            else cparams["embed"].T
+        # largest divisor of the padded vocab <= ce_chunk
+        V = cfg.padded_vocab
+        chunk = min(cfg.ce_chunk, V)
+        while V % chunk:
+            chunk -= 1
+        ce = streaming_ce(hidden, w, targets, cfg.vocab, chunk)
+    else:
+        logits, aux, _ = forward(params, tokens, cfg, mode="train")
+        logits = logits.to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+        ce = torch.mean(logz - tgt)
+    loss = ce + aux_weight * aux
+    return loss, {"ce": ce, "aux": aux,
+                  "ppl": torch.exp(torch.clamp(ce, max=20.0))}
 
 
 # ---------------------------------------------------------------------------
@@ -220,4 +305,4 @@ def cache_logical_axes(cfg: ModelConfig):
 
 
 __all__ = ["cache_logical_axes", "embed_tokens", "forward", "init_caches",
-           "init_params", "lm_head", "model_defs", "torch_dtype"]
+           "init_params", "lm_head", "loss_fn", "model_defs", "torch_dtype"]

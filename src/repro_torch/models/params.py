@@ -7,7 +7,9 @@ The reference's logical sharding axes are dropped: the port runs on one
 card.
 
 :func:`params_from_jax` carries the reference's parameters (as numpy
-arrays) across, so both packages can run the same weights.
+arrays) across, so both packages can run the same weights, and
+:func:`state_from_jax` a whole train state (parameters, AdamW moments and
+step), so both trainers can start from the same state.
 """
 
 from __future__ import annotations
@@ -200,5 +202,19 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
     return walk(defs, tree, "")
 
 
+def state_from_jax(state: Mapping, cfg: ModelConfig,
+                   device: Union[str, torch.device] = "cpu") -> Dict:
+    """A reference train state (``repro.training.init_state`` or
+    ``Trainer.state``, as nested dicts of numpy arrays: ``params``,
+    ``opt`` with ``m`` and ``v``, ``step``) as the port's: the three
+    parameter-shaped trees through :func:`params_from_jax`, the step as a
+    0-dim int32 tensor, all on ``device``."""
+    return {"params": params_from_jax(state["params"], cfg, device),
+            "opt": {k: params_from_jax(state["opt"][k], cfg, device)
+                    for k in ("m", "v")},
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}
+
+
 __all__ = ["ParamDef", "block_defs", "init_params", "mamba2_defs",
-           "model_defs", "params_from_jax"]
+           "model_defs", "params_from_jax", "state_from_jax"]

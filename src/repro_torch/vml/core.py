@@ -40,12 +40,35 @@ def _fin(y, orig):
 # bit-manipulation primitives (§5.1)
 # ---------------------------------------------------------------------------
 
+def _clear_sign(x):
+    return (x.view(_I32) & 0x7FFFFFFF).view(_F32)
+
+
+class _FabsF32(torch.autograd.Function):
+    """Clearing the sign bit, with the gradient sign(x) · g.  The bit
+    operations go through an int32 view, which autograd does not follow:
+    without this the gradient through ``fabs`` is silently 0 (the
+    reference gives ``_fabs_f32`` an explicit JVP for the same reason)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _clear_sign(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x < 0, -g, g)
+
+
 def fabs(x):
     """Clear the sign bit."""
     x, orig = _prep(x)
-    if x.dtype == _F32:
-        return _fin((x.view(_I32) & 0x7FFFFFFF).view(_F32), orig)
-    return _fin(torch.abs(x), orig)
+    if x.dtype != _F32:
+        return _fin(torch.abs(x), orig)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _fin(_FabsF32.apply(x), orig)
+    return _fin(_clear_sign(x), orig)
 
 
 def _ldexp_f32(x, k):

@@ -25,6 +25,14 @@ bfloat16 ulp (``rtol=2**-7``, ``atol=1e-6``); the kernel's final state
 must fail the state tolerance against the plain version given s - 1
 steps.
 
+Flash attention: the kernel and its plain version both compute in f32
+from the same inputs and differ in summation order and ``exp`` only, so a
+float32 output and the lse are held at ``rtol=1e-5, atol=1e-5`` and a
+bfloat16 output, rounded once, at one bfloat16 ulp (``rtol=2**-7``,
+``atol=1e-5``); rows with no valid key must be exact zeros.  That
+tolerance must fail against a dense attention whose causal mask is
+shifted by one key either way.
+
 On a machine with the card:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_kernels.py
@@ -39,12 +47,16 @@ from repro_torch.core.nvcc import build_parallel, find_nvcc
 from repro_torch.kernels import KERNELS
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
 BF16_ULP = 2.0 ** -7
 SSD_F32_TOL = dict(rtol=1e-5, atol=1e-5)
 SSD_Y_BF16_TOL = dict(rtol=BF16_ULP, atol=1e-6)
+FLASH_F32_TOL = dict(rtol=1e-5, atol=1e-5)
+FLASH_BF16_TOL = dict(rtol=BF16_ULP, atol=1e-5)
 
 
 def _decode_tol(qdt):
@@ -328,3 +340,130 @@ def test_full_width_mamba2_forward_launches_ssd_scan_in_prefill_only(dev):
     assert logits2.shape == (1, 1, cfg.padded_vocab)
     assert bool(torch.isfinite(logits2.float()).all())
     assert caches["len"].tolist() == [101]
+
+
+FLASH_SHAPES = [
+    # B, H, Hkv, Sq, Sk, D: the training shape (smollm-135m, 8 x 2048),
+    # D = 128 with GQA, Sq < Sk, Sq > Sk (rows with no valid key), ragged
+    # lengths with no GQA, one query row
+    (8, 9, 3, 2048, 2048, 64),
+    (2, 8, 2, 300, 300, 128),
+    (2, 4, 2, 100, 260, 64),
+    (1, 6, 2, 200, 70, 64),
+    (3, 2, 2, 77, 77, 64),
+    (2, 4, 1, 1, 129, 128),
+]
+
+
+def _flash_inputs(dev, dtype, B, H, Hkv, Sq, Sk, D, seed):
+    rng = np.random.default_rng(seed)
+    return (_t(rng.standard_normal((B, H, Sq, D)), dtype, dev),
+            _t(rng.standard_normal((B, Hkv, Sk, D)), dtype, dev),
+            _t(rng.standard_normal((B, Hkv, Sk, D)), dtype, dev))
+
+
+def _dense_attention(q, k, v, shift):
+    """Causal attention in f32 written densely, with the mask moved by
+    ``shift`` keys (j <= i + Sk - Sq + shift); zeros for a row with no
+    valid key.  The planted fault of the tolerance check."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(H // Hkv, dim=1)
+    vf = v.float().repeat_interleave(H // Hkv, dim=1)
+    s = torch.matmul(q.float() / D ** 0.5, kf.transpose(-1, -2))
+    i = torch.arange(Sq, device=q.device)[:, None]
+    j = torch.arange(Sk, device=q.device)[None, :]
+    ok = j <= i + (Sk - Sq) + shift
+    p = torch.softmax(s.masked_fill(~ok, float("-inf")), dim=-1)
+    return torch.matmul(torch.nan_to_num(p, nan=0.0), vf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D", FLASH_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(dev, B, H, Hkv, Sq, Sk, D,
+                                              causal, dtype):
+    q, k, v = _flash_inputs(dev, dtype, B, H, Hkv, Sq, Sk, D, Sq + Sk)
+    o, lse = flash_attention(q, k, v, causal=causal)
+    po, plse = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+    torch.testing.assert_close(o.float(), po.float(), **tol)
+    torch.testing.assert_close(lse, plse, **FLASH_F32_TOL)
+    if causal and Sq > Sk:
+        assert torch.all(o[:, :, :Sq - Sk] == 0), "a row with no key"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D", FLASH_SHAPES[1:5])
+def test_flash_tolerance_sees_a_causal_offset_off_by_one(dev, B, H, Hkv, Sq,
+                                                         Sk, D):
+    q, k, v = _flash_inputs(dev, torch.float32, B, H, Hkv, Sq, Sk, D, 3)
+    o, _ = flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(o, _dense_attention(q, k, v, 0),
+                               **FLASH_F32_TOL)
+    for shift in (-1, 1):
+        assert not torch.allclose(o, _dense_attention(q, k, v, shift),
+                                  **FLASH_F32_TOL), shift
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    q, k, v = _flash_inputs(dev, torch.bfloat16, 2, 4, 2, 16, 16, 64, 0)
+    before = KERNELS[3].launches
+    with pytest.raises(InvalidArgError, match="dtype"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(InvalidArgError, match="dtype"):
+        flash_attention(q, k.float(), v)
+    with pytest.raises(InvalidArgError, match="D in"):
+        flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                        v[..., :32].contiguous())
+    with pytest.raises(InvalidArgError, match="H % Hkv"):
+        flash_attention(q[:, :3].contiguous(), k, v)
+    with pytest.raises(InvalidArgError, match="contiguous"):
+        flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(InvalidArgError, match="shape"):
+        flash_attention(q, k, v[:, :, :8])
+    with pytest.raises(InvalidArgError):
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(NotImplementedError, match="FlashAttention"):
+        flash_attention(q.float().requires_grad_(True), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert KERNELS[3].launches == before, "a refused call launched"
+
+
+@pytest.mark.cuda
+def test_full_width_training_launches_flash_per_layer_and_per_remat(dev):
+    """smollm-135m at full width: a no-cache forward launches flash
+    attention once per layer, and a training step with ``remat="block"``
+    twice (the forward and its recompute in the backward), with a
+    gradient for every parameter, the norm weights included."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import forward, init_params, loss_fn
+
+    cfg = configs.get_config("smollm-135m")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    toks = torch.randint(0, cfg.vocab, (1, 256), device=dev)
+    fa = KERNELS[3]
+    before = fa.launches
+    with torch.no_grad():
+        forward(params, toks, cfg)
+    torch.cuda.synchronize()
+    assert fa.launches - before == cfg.n_layers
+    for remat, per_step in (("block", 2), ("none", 1)):
+        c = dataclasses.replace(cfg, remat=remat)
+        leaves = [params["embed"], params["ln_f"]["w"],
+                  params["layers"]["ln1"]["w"], params["layers"]["attn"]["wq"]]
+        for p in leaves:
+            p.requires_grad_(True)
+        before = fa.launches
+        loss, _ = loss_fn(params, {"tokens": toks,
+                                   "targets": torch.roll(toks, -1, 1)}, c)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        assert fa.launches - before == per_step * cfg.n_layers, remat
+        for g in grads:
+            assert bool(torch.isfinite(g).all()) and bool((g != 0).any())

@@ -208,17 +208,71 @@ def test_attention_ref_matches_reference_ref(causal):
     np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
 
 
+#: every function of the reference that reaches ``pl.pallas_call`` (the
+#: TPU kernels, PERF.md's table) -> its port: a kernel of
+#: ``repro_torch.kernels.KERNELS`` (by name) or the ``cuda`` target
+TPU_KERNELS = {
+    "core/targets/pallas_target.py:PallasWGProgram.run_ndrange": "cuda",
+    "kernels/rmsnorm.py:rmsnorm": "rmsnorm",
+    "kernels/decode_attention.py:decode_attention": "decode_attention",
+    "kernels/flash_attention.py:flash_attention": "flash_attention",
+    "kernels/ssd_scan.py:ssd_scan": "ssd_scan",
+}
+
+
 def test_unported_kernels_raise_naming_the_roadmap():
-    """Flash attention (B.4) is the one kernel still to port; the SSD scan
-    (B.5) is ported and its parity tests are in test_torch_ssd.py."""
+    """No TPU kernel is left unported: each function of the reference
+    that reaches ``pl.pallas_call`` has its hand-written counterpart, a
+    model kernel with a CUDA source or the ``cuda`` work-group target,
+    and the kernel switch runs it (the SSD scan's parity tests are in
+    test_torch_ssd.py, flash attention's in test_torch_flash.py)."""
+    import pathlib
+    from repro_torch.core.targets.vector import WGProgram
+    from repro_torch.core.targets import cuda_target
+    from repro_torch.kernels import KERNELS
+    src = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro"
+    found = set()
+    for f in sorted(src.rglob("*.py")):
+        text = f.read_text()
+        if "pl.pallas_call(" in text:
+            rel = f.relative_to(src).as_posix()
+            found.update(k for k in TPU_KERNELS if k.startswith(rel + ":"))
+            assert any(k.startswith(rel + ":") for k in TPU_KERNELS), rel
+    assert found == set(TPU_KERNELS)
+    ported = {k.name: k for k in KERNELS}
+    for tpu, port in TPU_KERNELS.items():
+        if port == "cuda":
+            assert issubclass(cuda_target.CudaWGProgram, WGProgram), tpu
+        else:
+            assert ported[port].source_path.exists(), (tpu, port)
     x = torch.zeros(1, 1, 4, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP §B.4"):
-        tops.attention(x, x, x, use_kernels=True)
+    o = tops.attention(x, x, x, use_kernels=True)
+    assert o.shape == (1, 1, 4, 8)
     y, state = tops.ssd_scan(torch.zeros(1, 8, 4, 8), torch.zeros(1, 8, 4),
                              torch.zeros(4), torch.zeros(1, 8, 1, 16),
                              torch.zeros(1, 8, 1, 16), chunk=8,
                              use_kernels=True)
     assert y.shape == (1, 8, 4, 8) and state.shape == (1, 4, 8, 16)
+
+
+def test_kernels_without_a_backward_refuse_inputs_that_require_grad():
+    """decode attention and the SSD scan have no backward: an input that
+    requires grad is refused while grad mode is on, naming the ROADMAP
+    item, instead of a result with no ``grad_fn``; without grad mode they
+    run."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    q = torch.zeros(2, 4, 16, requires_grad=True)
+    kc = torch.zeros(2, 2, 32, 16)
+    lens = torch.tensor([3, 32], dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP §B.2"):
+        decode_attention(q, kc, kc, lens)
+    args = (torch.zeros(1, 8, 4, 8, requires_grad=True), torch.zeros(1, 8, 4),
+            torch.zeros(4), torch.zeros(1, 8, 1, 16), torch.zeros(1, 8, 1, 16))
+    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
+        ssd_scan(*args, chunk=8)
+    with torch.no_grad():
+        assert decode_attention(q, kc, kc, lens).shape == (2, 4, 16)
+        assert ssd_scan(*args, chunk=8)[0].shape == (1, 8, 4, 8)
 
 
 def test_wrappers_refuse_tensors_that_are_neither_cpu_nor_cuda():

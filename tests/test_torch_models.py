@@ -136,9 +136,13 @@ def test_per_row_lengths_in_one_decode_batch():
 
 
 def test_forward_without_cache():
-    """``use_kernels=False`` runs the blocked attention and matches the
-    reference's training forward; ``use_kernels=True`` asks for the flash
-    kernel, which has no port yet, and raises."""
+    """The training forward (no cache) against the reference's with
+    ``use_pallas=False``, for both settings of the kernel switch:
+    ``use_kernels=False`` runs the blocked attention, ``use_kernels=True``
+    the flash kernel's plain version (on CPU tensors) with q/k/v handed
+    over in its (B, H, S, D) layout (ROADMAP §C.2).  It is not held to
+    the reference's ``use_pallas=True``, whose call site reads the
+    sequence axis as heads."""
     jcfg, tcfg, jp, tp = _pair("float32", False, seed=2)
     toks = np.random.default_rng(2).integers(0, 512, (2, 12)).astype(np.int32)
     jl, _, _ = jforward(jp, jnp.asarray(toks), jcfg, BASELINE_RULES,
@@ -146,9 +150,10 @@ def test_forward_without_cache():
     tl, _, nc = forward(tp, torch.from_numpy(toks).long(), tcfg)
     assert nc is None
     _check(tl, jl, "float32", "logits")
-    with pytest.raises(NotImplementedError, match="ROADMAP §B.4"):
-        forward(tp, torch.from_numpy(toks).long(),
-                dataclasses.replace(tcfg, use_kernels=True))
+    with torch.no_grad():
+        kl, _, _ = forward(tp, torch.from_numpy(toks).long(),
+                           dataclasses.replace(tcfg, use_kernels=True))
+    _check(kl, jl, "float32", "logits")
 
 
 def test_compute_dtype_cast_follows_the_reference():
