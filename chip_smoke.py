@@ -33,7 +33,10 @@ or launch error raises and the script exits non-zero.
      the ``vector`` target, then timed with CUDA events (median of 20
      launches, L2 flushed before each) beside the plain version's time
      (median of 3), the bound and, where one PyTorch call computes the
-     same function, that call's time;
+     same function, that call's time; with each kernel's mapping
+     (threads per block, the ``__syncthreads()`` kept in its source,
+     direct region flow or not) and the static counts of a few
+     instructions in its SASS (``cuobjdump -sass``);
   6. serving (main path): ``repro_torch.launch.serve`` at full width
      (30 layers, d 576, 9/3 heads, vocab 49152; random weights from seed
      0) with 8 slots and a 2048-token cache serves 16 requests (prompts
@@ -243,6 +246,30 @@ QS_N, QS_LSZ = 1 << 22, 64
 
 def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def sass_counts(lib):
+    """Static counts of shared loads and stores and of block barriers in
+    a built library's SASS (``cuobjdump -sass``), or None where the tool
+    is missing or fails."""
+    from repro_torch.core.nvcc import find_nvcc
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    try:
+        r = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                           text=True, timeout=120)
+    except OSError:
+        return None
+    if r.returncode != 0:
+        return None
+    ops = []
+    for ln in r.stdout.splitlines():
+        toks = ln.split("*/", 1)[1].split() if "*/" in ln else []
+        if toks and toks[0].startswith("@"):
+            toks = toks[1:]
+        if toks:
+            ops.append(toks[0])
+    return {k: sum(1 for o in ops if o.split(".")[0] == k)
+            for k in ("LDS", "STS", "BAR", "FFMA", "FADD", "FMUL")}
 
 
 def nvidia_smi():
@@ -1226,9 +1253,14 @@ def main() -> int:
         label = f"cuda_target/{name}" + (
             f"_local{params['use_local']}" if name == "stencil1d" else "")
         launches = counts[id(binary.prog)]
+        prog = binary.prog
         emit(5, kernel=label, shape=shape, params=params, ms=ms,
              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
              fraction_of_bound=bms / ms, launches=launches,
+             threads_per_block=prog.L,
+             barriers=prog.source.count("__syncthreads();"),
+             direct=prog.mapping.direct,
+             sass=sass_counts(prog.nvcc_job().out),
              inputs_and_oracle_s=setup_s,
              tf32={"matmul": torch.backends.cuda.matmul.allow_tf32,
                    "cudnn": torch.backends.cudnn.allow_tf32})

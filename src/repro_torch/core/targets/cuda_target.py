@@ -1,4 +1,4 @@
-"""CUDA target: one thread block per work-group, one thread per work-item.
+"""CUDA target: one thread block per work-group.
 
 Replaces ``repro/core/targets/pallas_target.py:PallasWGProgram.run_ndrange``
 (the Pallas grid target, one work-group per grid cell over the lane
@@ -6,23 +6,26 @@ mapping).  CUDA's natural mapping of OpenCL is different, so this target
 turns the shared :class:`~repro_torch.core.passes.WorkGroupPlan` plus a
 local size into CUDA C for Hopper (``sm_90a``), built with ``nvcc`` into a
 shared library with a plain C launcher and bound with ``ctypes``.
-
-The emitted kernel:
+:mod:`.cuda_mapping` takes the mapping's three decisions from the plan;
+the emitted kernel:
 
 * runs linear group ``blockIdx.x + lo`` in each block (``group_range``
-  gives a grid of ``hi - lo`` blocks); group and local ids decode as the
-  vector target's do;
+  gives a grid of ``hi - lo`` blocks), one thread per work-item; group
+  and local ids decode as the vector target's do;
 * turns each region's CFG blocks into labels and ``goto``\\ s.  The plan's
-  regions and schedule stay the unit of mapping: a chain schedule becomes
-  straight-line regions with ``__syncthreads()`` between them, any other
-  schedule ``while (rid < K) switch (rid)``, where work-item 0 publishes
-  the next region id through shared memory before the barrier (the
-  peeled first work-item of paper §4.4);
+  regions stay the unit of mapping.  Where every region's successor is
+  work-group uniform, each thread jumps to the next region's label
+  itself; otherwise the kernel keeps ``while (rid < K) switch (rid)``,
+  where work-item 0 publishes the next region id through shared memory
+  before the barrier (the peeled first work-item of paper §4.4);
+* emits a ``__syncthreads()`` for every explicit barrier and for each
+  implicit one whose removal could reorder memory accesses of different
+  work-items (every region boundary of a ``while (switch)`` kernel);
 * keeps every SSA value and virtual register in a per-thread local
-  declared at function scope and set to zero there (the vector target's
-  "unwritten vregs read zero").  Values that cross a barrier therefore
-  stay in registers, and the §4.7 context arrays are not needed on this
-  target — a deliberate departure from the other mappings;
+  declared at function scope and set to zero there (the vector target's "unwritten
+  vregs read zero").  Values that cross a barrier therefore stay in
+  registers, and the §4.7 context arrays are not needed on this target —
+  a deliberate departure from the other mappings;
 * places ``LOCAL`` arrays in dynamic shared memory, zeroed by the block
   before region 0 (the reference zeroes them per group); a launch whose
   arrays exceed the device's opt-in limit is refused with a typed error;
@@ -31,6 +34,8 @@ The emitted kernel:
 * reproduces the reference's clamped loads, dropped stores and integer
   and conversion rules through ``csrc/wg_runtime.cuh``, and is built with
   ``-fmad=false`` so that each IR operation rounds once, as the IR says.
+  That also makes each multiply-add two instructions, so no kernel of
+  this target passes half of the FP32 peak.
 
 One semantic difference remains: CUDA blocks run concurrently, while the
 Pallas grid and the reference's loop over groups run them in order.
@@ -39,13 +44,14 @@ is OpenCL's contract; every compiler case and suite kernel keeps it (the
 histogram writes per-group partials).
 
 What bounds it on the H100: device-memory bytes for the stencils, the
-scan, the histogram and SpMV, and FP32 CUDA-core FMAs for GEMM.  This
-first design is simple and correct; tensor cores, ``cp.async`` and TMA
-are later work.
+scan, the histogram and SpMV, and FP32 CUDA-core FMAs for GEMM.
+Tensor cores, ``cp.async`` and TMA are later work.
 
 Each library is cached under ``build/repro_torch/`` by the SHA-256 of its
 source, the runtime header and the compiler flags, and is built at first
 launch; :func:`build_many` builds many at once, one ``nvcc`` each.
+``tests/test_torch_cuda_emit.py`` runs the emitted source on the CPU
+against a stand-in for the CUDA runtime.
 """
 
 from __future__ import annotations
@@ -64,6 +70,8 @@ from ..cache import canonical_value_names
 from ..errors import InvalidArgError, ReproError, register_error
 from ..ir import CondBranch, Jump, Return, Value
 from ..nvcc import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, NvccJob, build_parallel
+from .cuda_mapping import (CudaMapping, barrier_kind, literal_int, map_plan,
+                           operand_range)
 from .vector import WGProgram
 
 MAX_THREADS = 1024          # CUDA's limit on threads per block
@@ -126,8 +134,7 @@ def _literal(o) -> Tuple[str, str]:
     if t == "bool":
         return ("true" if bool(a) else "false"), t
     if t == "int32":
-        v = int(a.astype(np.int64)) & 0xFFFFFFFF
-        v = v - (1 << 32) if v >= 1 << 31 else v
+        v = literal_int(a)
         return ("(-2147483647 - 1)" if v == -(1 << 31) else f"({v})"), t
     f = np.float32(a.astype(np.float32))
     if np.isfinite(f):
@@ -164,10 +171,17 @@ _FLOAT_UN = {"neg": "(-{a})", "abs": "fabsf({a})", "exp": "expf({a})",
              "ceil": "ceilf({a})", "rint": "rintf({a})"}
 
 
-def _binexpr(op: str, a: str, b: str, t: str) -> str:
+# int32 arithmetic whose bounds fit int32 (cuda_mapping.int_ranges) cannot
+# wrap; written plainly, nvcc folds and vectorizes the addresses it forms
+_NO_WRAP = {**_INT_BIN, "add": "({a} + {b})", "sub": "({a} - {b})",
+            "mul": "({a} * {b})"}
+
+
+def _binexpr(op: str, a: str, b: str, t: str, int_table=None) -> str:
     if op in _CMP:
         return f"({a} {_CMP[op]} {b})"
-    table = {"float32": _FLOAT_BIN, "int32": _INT_BIN, "bool": _BOOL_BIN}[t]
+    table = {"float32": _FLOAT_BIN, "int32": int_table or _INT_BIN,
+             "bool": _BOOL_BIN}[t]
     if op not in table:
         raise InvalidArgError(f"cuda target: no {op!r} on {t}")
     return table[op].format(a=a, b=b)
@@ -206,6 +220,7 @@ class _Emitter:
     def __init__(self, prog: "CudaWGProgram"):
         self.prog = prog
         self.fn = prog.wg.fn
+        self.map: CudaMapping = prog.mapping
         self.names = canonical_value_names(self.fn)
         self.bidx = {n: i for i, n in enumerate(self.fn.rpo())}
         vregs: Dict[str, str] = {}
@@ -226,7 +241,7 @@ class _Emitter:
             off += -(-nbytes // 16) * 16
         self.smem_bytes = off
 
-    # -- operands ------------------------------------------------------------
+    # -- operands --------------------------------------------------------------
     def vname(self, v: Value) -> str:
         if v.id not in self.names:
             self.names[v.id] = f"v{len(self.names)}"
@@ -250,7 +265,8 @@ class _Emitter:
         op = ins.op
         res = ins.result
         if op == "vreg_read":
-            return f"{self.vname(res)} = {self.vregs[ins.attrs['vreg']][0]};"
+            q, _ = self.vregs[ins.attrs["vreg"]]
+            return f"{self.vname(res)} = {q};"
         if op == "vreg_write":
             q, qt = self.vregs[ins.attrs["vreg"]]
             e, t = self.opnd(ins.operands[0])
@@ -260,6 +276,8 @@ class _Emitter:
             ie, it = self.opnd(ins.operands[0])
             ve, vt = self.opnd(ins.operands[1])
             val = _cvt(_cvt(ve, vt, _canon(bt)), _canon(bt), bt)
+            if self.in_bounds(ins):
+                return f"{ptr}[{ie}] = {val};"
             return (f"wg_st<{_CTYPE[bt]}>({ptr}, {n}, "
                     f"(long long){_cvt(ie, it, 'int32')}, {val});")
         if op == "barrier":
@@ -271,7 +289,8 @@ class _Emitter:
         elif op in ir.BINOPS or op in ir.CMPOPS:
             (ea, ta), (eb, tb) = (self.opnd(o) for o in ins.operands)
             t = _promote(ta, tb) if op in ir.CMPOPS else rt
-            expr = _binexpr(op, _cvt(ea, ta, t), _cvt(eb, tb, t), t)
+            table = _NO_WRAP if res.id in self.map.ranges else None
+            expr = _binexpr(op, _cvt(ea, ta, t), _cvt(eb, tb, t), t, table)
         elif op in ir.UNOPS:
             e, t = self.opnd(ins.operands[0])
             expr, et = _unexpr(op, e, t)
@@ -286,11 +305,24 @@ class _Emitter:
         elif op == "load":
             ptr, n, bt = self.buf(ins.attrs["buffer"])
             ie, it = self.opnd(ins.operands[0])
-            expr = _cvt(f"wg_ld<{_CTYPE[bt]}>({ptr}, {n}, "
-                        f"(long long){_cvt(ie, it, 'int32')})", bt, rt)
+            ld = f"{ptr}[{ie}]" if self.in_bounds(ins) else \
+                (f"wg_ld<{_CTYPE[bt]}>({ptr}, {n}, "
+                 f"(long long){_cvt(ie, it, 'int32')})")
+            expr = _cvt(ld, bt, rt)
         else:
             raise InvalidArgError(f"cuda target: op {op!r}")
         return f"{self.vname(res)} = {expr};"
+
+    def in_bounds(self, ins: ir.Instr) -> bool:
+        """A ``LOCAL`` access whose int32 index provably lies within the
+        array: no clamp, no range test."""
+        a = self.fn.buffer_args[self.buf_index[ins.attrs["buffer"]]]
+        idx = ins.operands[0]
+        if a.space != ir.LOCAL or (isinstance(idx, Value)
+                                   and _canon(idx.dtype) != "int32"):
+            return False
+        b = operand_range(self.map.ranges, idx)
+        return b is not None and 0 <= b[0] and b[1] < int(a.size)
 
     def id_op(self, op: str, d: int) -> str:
         lsz = self.prog.lsz
@@ -307,36 +339,53 @@ class _Emitter:
         return f"wg_iadd(wg_imul(wg_gid{d}, {lsz[d]}), wg_lid{d})"
 
     # -- regions ---------------------------------------------------------------
+    def label(self, i: int, b: str) -> str:
+        return f"R{i}_b{self.bidx[b]}"
+
     def region(self, i: int, bar: str) -> List[str]:
+        """Region ``i``: its barrier, then its blocks."""
         region = self.prog.wg.regions[bar]
-        K = self.prog.K
-        out = [f"  // region {i} (after barrier block b{self.bidx[bar]})"]
+        K, direct = self.prog.K, self.map.direct
+        kept = bar in self.map.kept
+        out = [f"  // region {i} (after barrier block b{self.bidx[bar]}, "
+               f"{barrier_kind(self.fn, bar)}"
+               f"{'' if kept or not direct else ', dropped'})"]
+        if direct:
+            out.append(f"wg_r{i}:;")
+            if kept:
+                out.append("  __syncthreads();")
         if region.entry is None:
-            return out + [f"  wg_nx = {K};"]
+            return out + ["  goto wg_done;" if direct else f"  wg_nx = {K};"]
         rid_of = self.prog.rid_of
 
-        def edge(t: str) -> str:
-            if t in region.blocks:
-                return f"goto R{i}_b{self.bidx[t]};"
-            return f"{{ wg_nx = {rid_of[t]}; goto R{i}_end; }}"
+        def edge(t) -> str:      # t: a block, or None for Return
+            if t is not None and t in region.blocks:
+                return f"goto {self.label(i, t)};"
+            nx = K if t is None else rid_of[t]
+            if direct:
+                return "goto wg_done;" if t is None else f"goto wg_r{nx};"
+            # work-item 0 decides (paper §4.4)
+            return f"{{ wg_nx = {nx}; goto R{i}_end; }}"
 
         blocks = [region.entry] + sorted(region.blocks - {region.entry},
                                          key=self.bidx.__getitem__)
         for b in blocks:
             blk = self.fn.blocks[b]
-            out.append(f"R{i}_b{self.bidx[b]}:;")
+            out.append(f"{self.label(i, b)}:;")
             out += ["  " + self.instr(ins) for ins in blk.instrs]
             term = blk.terminator
             if isinstance(term, Jump):
                 out.append("  " + edge(term.target))
             elif isinstance(term, CondBranch):
-                c, ct = self.opnd(term.cond)
-                out.append(f"  if ({_cvt(c, ct, 'bool')}) "
-                           f"{edge(term.if_true)} else {edge(term.if_false)}")
+                cnd, ct = self.opnd(term.cond)
+                out.append(f"  if ({_cvt(cnd, ct, 'bool')}) "
+                           f"{edge(term.if_true)} else "
+                           f"{edge(term.if_false)}")
             else:
                 assert isinstance(term, Return)
-                out.append(f"  {{ wg_nx = {K}; goto R{i}_end; }}")
-        out.append(f"R{i}_end:;")
+                out.append("  " + edge(None))
+        if not direct:
+            out.append(f"R{i}_end:;")
         return out
 
     # -- the whole translation unit ----------------------------------------------
@@ -345,9 +394,9 @@ class _Emitter:
                     list(self.fn.scalar_args))
 
     def source(self) -> str:
-        prog, fn = self.prog, self.fn
+        prog, fn, m = self.prog, self.fn, self.map
         sig = self.signature()
-        L, lsz, K = prog.L, prog.lsz, prog.K
+        lsz, K, T = prog.lsz, prog.K, prog.L
         params, call = [], []
         for a in sig.globals:
             i = self.buf_index[a.name]
@@ -376,16 +425,25 @@ class _Emitter:
         for name, (q, t) in self.vregs.items():
             decls.append(f"  {_CTYPE[t]} {q} = 0;  // vreg {name}")
 
+        n_bars = len(prog.order)
         lines = [
-            f"// kernel {fn.name!r}, local size {lsz}: one thread block per "
-            f"work-group, one thread per work-item",
+            f"// kernel {fn.name!r}, local size {lsz}: one thread block of "
+            f"{T} threads per work-group, one thread per work-item",
+            "// region transitions: " + (
+                "direct, every successor is work-group uniform" if m.direct
+                else "while (switch), work-item 0 decides (paper §4.4)"),
+            f"// barriers: {len(m.kept)} of {n_bars} kept as "
+            f"__syncthreads()",
             f"// emitted by repro_torch/core/targets/cuda_target.py",
             '#include "wg_runtime.cuh"',
             "",
-            f"extern \"C\" __global__ void __launch_bounds__({L}) "
+            f"extern \"C\" __global__ void __launch_bounds__({T}) "
             f"wg_kernel({kparams}) {{",
             "  extern __shared__ __align__(16) unsigned char wg_smem[];",
-            "  __shared__ int wg_next[2];",
+        ]
+        if not m.direct:
+            lines.append("  __shared__ int wg_next[2];")
+        lines += [
             "  const int wg_lin = (int)threadIdx.x;",
             "  const int wg_grp = (int)blockIdx.x + wg_lo;",
             f"  const int wg_lid0 = wg_lin % {lsz[0]};",
@@ -394,8 +452,9 @@ class _Emitter:
             "  const int wg_gid0 = wg_grp % wg_ng0;",
             "  const int wg_gid1 = (wg_grp / wg_ng0) % wg_ng1;",
             "  const int wg_gid2 = wg_grp / (wg_ng0 * wg_ng1);",
-            f"  int wg_nx = {K};",
         ]
+        if not m.direct:
+            lines.append(f"  int wg_nx = {K};")
         for a in self.locals:
             i = self.buf_index[a.name]
             ct = _CTYPE[np.dtype(a.dtype).name]
@@ -406,12 +465,13 @@ class _Emitter:
             lines += [
                 "  // LOCAL arrays start zeroed in every work-group",
                 f"  for (int i = wg_lin; i < {self.smem_bytes // 4}; "
-                f"i += {L}) ((int*)wg_smem)[i] = 0;",
+                f"i += {T}) ((int*)wg_smem)[i] = 0;",
                 "  __syncthreads();",
             ]
         lines += body
+        if not m.direct:
+            lines.append("  (void)wg_nx; (void)wg_next;")
         lines += [
-            "  (void)wg_nx; (void)wg_next;",
             "}",
             "",
             f"extern \"C\" int wg_launch({', '.join(params)}, "
@@ -429,7 +489,7 @@ class _Emitter:
                 "  if (e != cudaSuccess) return (int)e;",
             ]
         lines += [
-            f"  wg_kernel<<<wg_groups, {L}, {self.smem_bytes}, "
+            f"  wg_kernel<<<wg_groups, {T}, {self.smem_bytes}, "
             f"(cudaStream_t)wg_stream>>>({', '.join(call + ['wg_lo', 'wg_ng0', 'wg_ng1', 'wg_ng2'])});",
             "  return (int)cudaGetLastError();",
             "}",
@@ -443,13 +503,11 @@ class _Emitter:
 
     def schedule(self) -> List[str]:
         prog = self.prog
-        if prog.wg.is_chain():
+        if self.map.direct:
             out = []
-            for n, bar in enumerate(prog.wg.chain()):
-                if n:
-                    out.append("  __syncthreads();")
-                out += self.region(prog.rid_of[bar], bar)
-            return out
+            for i, bar in enumerate(prog.order):
+                out += self.region(i, bar)
+            return out + ["wg_done:;"]
         out = ["  int wg_rid = 0;", "  int wg_it = 0;",
                f"  while (wg_rid < {prog.K}) {{",
                f"  wg_nx = {prog.K};",
@@ -525,6 +583,7 @@ class CudaWGProgram(WGProgram):
             raise InvalidArgError(
                 f"local size {self.lsz} has {self.L} work-items; a CUDA "
                 f"thread block holds at most {MAX_THREADS}")
+        self.mapping = map_plan(self.wgplan, self.lsz)
         self.source, self.smem_bytes, self.sig = emit_cuda(self)
         self.local_names = [a.name for a in self.wg.fn.buffer_args
                         if a.space == ir.LOCAL]
@@ -593,8 +652,8 @@ class CudaWGProgram(WGProgram):
         lim = device_limits(dev)
         if self.L > lim.max_threads:
             raise InvalidArgError(
-                f"local size {self.lsz} exceeds the device's "
-                f"{lim.max_threads} threads per block")
+                f"local size {self.lsz} needs {self.L} threads; the "
+                f"device allows {lim.max_threads} per block")
         if self.smem_bytes > lim.smem_optin:
             raise InvalidArgError(
                 f"kernel {self.wg.fn.name!r} needs {self.smem_bytes} bytes "

@@ -1,8 +1,8 @@
 // Work-group runtime for the kernels that repro_torch/core/targets/cuda_target.py
 // emits: clamped loads, dropped stores, and integer and conversion helpers that
 // reproduce the reference targets' (XLA's) semantics where C leaves them
-// undefined or differs.  One thread block is one OpenCL work-group, one thread
-// one work-item.
+// undefined or differs.  One thread block is one OpenCL work-group; a thread
+// runs one or more of its work-items.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,10 +1,11 @@
-// kernel 'dct', local size (8, 1, 1): one thread block per work-group, one thread per work-item
+// kernel 'dct', local size (8, 1, 1): one thread block of 8 threads per work-group, one thread per work-item
+// region transitions: direct, every successor is work-group uniform
+// barriers: 1 of 5 kept as __syncthreads()
 // emitted by repro_torch/core/targets/cuda_target.py
 #include "wg_runtime.cuh"
 
 extern "C" __global__ void __launch_bounds__(8) wg_kernel(float* b0, long long n0, float* b1, long long n1, float* b2, long long n2, int v0, int wg_lo, int wg_ng0, int wg_ng1, int wg_ng2) {
   extern __shared__ __align__(16) unsigned char wg_smem[];
-  __shared__ int wg_next[2];
   const int wg_lin = (int)threadIdx.x;
   const int wg_grp = (int)blockIdx.x + wg_lo;
   const int wg_lid0 = wg_lin % 8;
@@ -13,7 +14,6 @@ extern "C" __global__ void __launch_bounds__(8) wg_kernel(float* b0, long long n
   const int wg_gid0 = wg_grp % wg_ng0;
   const int wg_gid1 = (wg_grp / wg_ng0) % wg_ng1;
   const int wg_gid2 = wg_grp / (wg_ng0 * wg_ng1);
-  int wg_nx = 5;
   int v1 = 0;
   float v2 = 0;
   int v3 = 0;
@@ -27,38 +27,30 @@ extern "C" __global__ void __launch_bounds__(8) wg_kernel(float* b0, long long n
   int v11 = 0;
   float q0 = 0;  // vreg r.acc.loop
   int q1 = 0;  // vreg r.k.loop
-  int wg_rid = 0;
-  int wg_it = 0;
-  while (wg_rid < 5) {
-  wg_nx = 5;
-  switch (wg_rid) {
-  case 0: {
-  // region 0 (after barrier block b1)
+  // region 0 (after barrier block b1, entry, dropped)
+wg_r0:;
 R0_b2:;
   v1 = wg_lid0;
   q0 = (0x0.0p+0f);
   q1 = (0);
-  { wg_nx = 1; goto R0_end; }
-R0_end:;
-  } break;
-  case 1: {
-  // region 1 (after barrier block b3)
+  goto wg_r1;
+  // region 1 (after barrier block b3, bloop-pre, dropped)
+wg_r1:;
 R1_b4:;
   goto R1_b5;
 R1_b5:;
   v2 = q0;
   v3 = q1;
-  { wg_nx = 2; goto R1_end; }
-R1_end:;
-  } break;
-  case 2: {
-  // region 2 (after barrier block b6)
+  goto wg_r2;
+  // region 2 (after barrier block b6, bloop-header)
+wg_r2:;
+  __syncthreads();
 R2_b7:;
   v4 = (v3 < v0);
   if (v4) goto R2_b11; else goto R2_b8;
 R2_b8:;
   wg_st<float>(b2, n2, (long long)v1, v2);
-  { wg_nx = 3; goto R2_end; }
+  goto wg_r3;
 R2_b11:;
   v5 = wg_ld<float>(b1, n1, (long long)v3);
   v6 = wg_imul(v1, v0);
@@ -69,34 +61,20 @@ R2_b11:;
   v11 = wg_iadd(v3, (1));
   q0 = v10;
   q1 = v11;
-  { wg_nx = 4; goto R2_end; }
-R2_end:;
-  } break;
-  case 3: {
-  // region 3 (after barrier block b9)
+  goto wg_r4;
+  // region 3 (after barrier block b9, exit, dropped)
+wg_r3:;
 R3_b10:;
-  { wg_nx = 5; goto R3_end; }
-R3_end:;
-  } break;
-  case 4: {
-  // region 4 (after barrier block b12)
+  goto wg_done;
+  // region 4 (after barrier block b12, bloop-latch, dropped)
+wg_r4:;
 R4_b13:;
   goto R4_b5;
 R4_b5:;
   v2 = q0;
   v3 = q1;
-  { wg_nx = 2; goto R4_end; }
-R4_end:;
-  } break;
-  default: break;
-  }
-  // work-item 0 decides the next region (paper §4.4)
-  if (wg_lin == 0) wg_next[wg_it & 1] = wg_nx;
-  __syncthreads();
-  wg_rid = wg_next[wg_it & 1];
-  ++wg_it;
-  }
-  (void)wg_nx; (void)wg_next;
+  goto wg_r2;
+wg_done:;
 }
 
 extern "C" int wg_launch(float* b0, long long n0, float* b1, long long n1, float* b2, long long n2, int v0, int wg_lo, int wg_groups, int wg_ng0, int wg_ng1, int wg_ng2, int wg_device, void* wg_stream) {

@@ -1,8 +1,10 @@
 """The ``cuda`` work-group target of ``repro_torch``.
 
-On the CPU: the emitted CUDA source (golden snapshots, one barrier per
-region boundary, zeroed ``__shared__`` memory, every compiler case and
-suite kernel emits) and the typed refusals.  On a card (marker ``cuda``,
+On the CPU: the emitted CUDA source (golden snapshots, direct region
+control flow and a ``__syncthreads()`` only where a barrier orders
+memory, zeroed ``__shared__`` memory, every compiler case and suite
+kernel emits) and the typed refusals; ``tests/test_torch_cuda_emit.py``
+runs the emitted source on the CPU.  On a card (marker ``cuda``,
 skipped elsewhere): the kernels against the torch ``vector`` target, its
 plain version, on the same device — bitwise, since the suite's data is
 integer-valued or dyadic and the kernels are built with
@@ -28,13 +30,16 @@ from repro_torch.core.errors import BuildError
 from repro_torch.core.examples import build_condbar, build_dct, build_reduce2
 from repro_torch.core import nvcc
 from repro_torch.core.targets import cuda_target
+from repro_torch.core.targets.cuda_mapping import barrier_kind
 from repro_torch.core.targets.cuda_target import CudaWGProgram, build_many
 from repro_torch.runtime import Context, DeviceNotFoundError, Platform
 from repro_torch.suite import SUITE
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden", "torch_cuda")
+GEMM_REAL = SUITE["gemm"].build({"m": 2048, "n": 2048, "k": 2048},
+                                {"ts": 16, "unroll": 16})
 GOLDEN = {"reduce2": (build_reduce2, (2,)), "condbar": (build_condbar, (4,)),
-          "dct": (build_dct, (8,))}
+          "dct": (build_dct, (8,)), "gemm_ts16": (GEMM_REAL, (16, 16))}
 
 
 def cuda_program(build, lsz, horizontal=True) -> CudaWGProgram:
@@ -86,23 +91,88 @@ def test_emitted_source_golden(name):
 def test_every_kernel_emits_with_one_barrier_per_boundary(name, build, lsz,
                                                           hz):
     prog = cuda_program(build, lsz, hz)
-    src = prog.source
+    src, m, fn = prog.source, prog.mapping, prog.wg.fn
     assert "wg_kernel(" in src and "extern \"C\" int wg_launch(" in src
-    assert f"__launch_bounds__({prog.L})" in src
+    # one thread per work-item
+    assert f"__launch_bounds__({prog.L}) " in src
+    assert f"<<<wg_groups, {prog.L}, " in src
     has_locals = prog.smem_bytes > 0
     zeroing = src.count("((int*)wg_smem)[i] = 0;")
     assert zeroing == int(has_locals)
-    if prog.wg.is_chain():
-        boundaries = len(prog.wg.chain()) - 1
-        assert "switch (wg_rid)" not in src
+    explicit = {b for b in prog.order if barrier_kind(fn, b) == "explicit"}
+    if m.direct:
+        # every region's successor uniform: no switch, and a barrier only
+        # where one is explicit, or kept to order memory, or after zeroing
+        assert "switch (wg_rid)" not in src and "wg_next" not in src
+        assert explicit <= m.kept
+        assert src.count("__syncthreads();") == \
+            len(explicit) + len(m.kept - explicit) + int(has_locals)
     else:
         boundaries = 1      # the one barrier at the bottom of the loop
         assert "switch (wg_rid)" in src
         assert src.count("case ") == prog.K
-    assert src.count("__syncthreads();") == boundaries + int(has_locals)
+        assert src.count("__syncthreads();") == boundaries + int(has_locals)
+    if prog.wg.is_chain():
+        assert m.direct
+    if not hz and any(len(r.exits) > 1 for r in prog.wg.regions.values()):
+        assert not m.direct     # no uniformity analysis, nothing proven
     # the zeroing runs before region 0
     if has_locals:
         assert src.index("((int*)wg_smem)[i] = 0;") < src.index("region 0")
+
+
+@pytest.mark.parametrize("name,shape,params,lsz,kloop_barriers", [
+    ("gemm", {"m": 2048, "n": 2048, "k": 2048}, {"ts": 16, "unroll": 16},
+     (16, 16), 2),
+    ("scan", {"n": 1 << 24, "seg": 256}, {"unroll": 0}, (256,), 1),
+])
+def test_real_size_kernels_take_direct_flow(name, shape, params, lsz,
+                                            kloop_barriers):
+    """The GEMM and the scan that ``chip_smoke.py`` times: no switch, and
+    only the explicit barriers of the loop (two per k-tile, one per scan
+    round), one before it for the scan, and the zeroing's."""
+    prog = cuda_program(SUITE[name].build(shape, params), lsz)
+    src = prog.source
+    assert prog.mapping.direct and "switch (wg_rid)" not in src
+    before_loop = 1 if name == "scan" else 0
+    assert src.count("__syncthreads();") == kloop_barriers + before_loop + 1
+    assert {barrier_kind(prog.wg.fn, b) for b in prog.mapping.kept} == \
+        {"explicit"}
+
+
+def test_int_ranges_hold_every_value_the_vector_target_computes():
+    """The bounds that let the emitter drop clamps and wrap-arounds
+    contain every value of their expressions on every work-item."""
+    exprs = [
+        lambda b, x, y: x, lambda b, x, y: y, lambda b, x, y: x * 16 + 3,
+        lambda b, x, y: (x * 7) % 5, lambda b, x, y: x / 3,
+        lambda b, x, y: b.minimum(x, 4) - 2,
+        lambda b, x, y: b.maximum(x - 8, 0) * y,
+        lambda b, x, y: b.select(x > 2, x * 3, y - 5),
+        lambda b, x, y: x & 6, lambda b, x, y: (x + 1) * (x - 3) - y,
+        lambda b, x, y: (x * 3 + 20) % 7 - y * 9,
+    ]
+
+    def build():
+        b = KernelBuilder("ranges", ndim=2)
+        out = b.arg_buffer("out", "int32")
+        x, y = b.local_id(0), b.local_id(1)
+        lin = (b.global_id(1) * 16 + b.global_id(0)) * len(exprs)
+        for k, e in enumerate(exprs):
+            out[lin + k] = e(b, x, y)
+        return b.finish()
+
+    lsz = (8, 2)
+    prog = cuda_program(build, lsz)
+    stores = [i for blk in prog.wg.fn.blocks.values() for i in blk.instrs
+              if i.op == "store"]
+    bounds = [prog.mapping.ranges.get(i.operands[1].id) for i in stores]
+    assert all(bd is not None for bd in bounds)
+    k = _compile_kernel(build, lsz, target="vector", cache=False)
+    got = k({"out": np.zeros(16 * 4 * len(exprs), np.int32)}, (16, 4),
+            None)["out"].numpy().reshape(-1, len(exprs))
+    for col, (lo, hi) in enumerate(bounds):
+        assert lo <= got[:, col].min() and got[:, col].max() <= hi, col
 
 
 def test_emission_is_deterministic_and_digest_tracks_source():
