@@ -61,11 +61,14 @@ or launch error raises and the script exits non-zero.
      a 2048-token bfloat16 cache, lengths from the seed with a 0 and a
      2048, within one bfloat16 ulp, ``rtol=2**-7, atol=1e-4``, and zeros
      for the empty row; every row must fail that tolerance against the
-     plain version given its length minus or plus one), then timed like
-     phase 5 beside their plain versions, their bounds and the PyTorch
-     call that computes the same function (``F.rms_norm``;
+     plain version given its length minus or plus one; the grid of the
+     split kernel, from ``split_plan``, must give every SM two blocks),
+     then timed like phase 5 beside their plain versions, their bounds
+     and the PyTorch call that computes the same function (``F.rms_norm``;
      ``scaled_dot_product_attention`` with the length mask and
-     ``enable_gqa=True``), which the port never calls;
+     ``enable_gqa=True``), which the port never calls; decode attention
+     and its library call again replayed from CUDA graphs, without the
+     host's dispatch;
   8. serving mamba2-780m (main path): ``repro_torch.launch.serve`` at
      full width (48 layers, d 1536, 48 SSD heads of 64, state 128, vocab
      50280; random weights from seed 0) with 8 slots and a 2048-token
@@ -89,11 +92,13 @@ or launch error raises and the script exits non-zero.
      version given s - 1 steps; then timed like phase 5 beside the plain
      version's time and the bound (no single PyTorch call computes the
      scan, so no library time);
- 10. ``flash_attention`` against its plain version, causal, at the
-     training shape (8 x 9 heads over 3 KV heads x 2048 x 64, bfloat16),
-     at D 128 with GQA, with Sq < Sk and at a ragged length in float32:
-     the output and lse within ``FLASH_F32_TOL`` (float32) and one
-     bfloat16 ulp for a bfloat16 output; then timed like phase 5 beside
+ 10. ``flash_attention``: its bfloat16 kernel's SASS must hold
+     tensor-core instructions (``HMMA``); then against its plain version,
+     causal, at the training shape (8 x 9 heads over 3 KV heads x 2048 x
+     64, bfloat16), at D 128 with GQA, with Sq < Sk and at a ragged
+     length in float32: the output and lse within ``FLASH_F32_TOL``
+     (float32) and one bfloat16 ulp for a bfloat16 output; then timed like
+     phase 5 beside
      the plain version, the bound (both products at the bf16 tensor-core
      peak for a bfloat16 call, the FP32 peak for a float32 one) and
      ``scaled_dot_product_attention`` (causal, ``enable_gqa=True``),
@@ -248,10 +253,12 @@ def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def sass_counts(lib):
-    """Static counts of shared loads and stores and of block barriers in
-    a built library's SASS (``cuobjdump -sass``), or None where the tool
-    is missing or fails."""
+def sass_counts(lib, function=None):
+    """Static counts of shared loads and stores, block barriers, FP32
+    arithmetic and tensor-core instructions (``HMMA``: ``mma.sync``;
+    ``HGMMA``: ``wgmma``) in a built library's SASS (``cuobjdump -sass``),
+    over its kernels whose name contains ``function`` (all where None),
+    or None where the tool is missing or fails."""
     from repro_torch.core.nvcc import find_nvcc
     tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
     try:
@@ -261,15 +268,21 @@ def sass_counts(lib):
         return None
     if r.returncode != 0:
         return None
-    ops = []
+    ops, name = [], ""
     for ln in r.stdout.splitlines():
+        if "Function : " in ln:
+            name = ln.split("Function : ", 1)[1].strip()
+            continue
+        if function is not None and function not in name:
+            continue
         toks = ln.split("*/", 1)[1].split() if "*/" in ln else []
         if toks and toks[0].startswith("@"):
             toks = toks[1:]
         if toks:
             ops.append(toks[0])
     return {k: sum(1 for o in ops if o.split(".")[0] == k)
-            for k in ("LDS", "STS", "BAR", "FFMA", "FADD", "FMUL")}
+            for k in ("LDS", "STS", "BAR", "FFMA", "FADD", "FMUL", "HMMA",
+                      "HGMMA")}
 
 
 def nvidia_smi():
@@ -481,6 +494,22 @@ def logits_vs_plain(torch, forward, init_caches, mcfg, mparams, toks0,
     return res
 
 
+def graph_ms(torch, time_ms, fn):
+    """``fn``'s time without its host dispatch: ``fn`` captured once in a
+    CUDA graph (after three warm-up calls on a side stream), the graph's
+    replays timed by ``time_ms`` (L2 flushed before each)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay)
+
+
 def bf16_ulp(v):
     """One bfloat16 ulp at the size of ``v`` (8 significant bits)."""
     return 2.0 ** (math.floor(math.log2(v)) - 7)
@@ -493,7 +522,7 @@ def serve_phase(torch, np, time_ms):
     import torch.nn.functional as F
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.decode_attention import (
-        decode_attention, decode_attention_plain)
+        decode_attention, decode_attention_plain, split_plan)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
     from repro_torch import configs
     from repro_torch.launch import serve
@@ -626,6 +655,11 @@ def serve_phase(torch, np, time_ms):
     lens = rng.integers(0, S + 1, B).astype(np.int32)
     lens[0], lens[1] = 0, S
     lengths = torch.tensor(lens, device=dev)
+    n_split, kps = split_plan(B, Hkv, S)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert B * Hkv * n_split >= 2 * sms, \
+        ("decode attention's grid gives the SMs fewer than two blocks each",
+         n_split, sms)
     a = decode_attention(q, kc, vc, lengths)
     b = decode_attention_plain(q, kc, vc, lengths)
     assert torch.all(a[0] == 0), "the row with no valid key is not zeros"
@@ -649,11 +683,20 @@ def serve_phase(torch, np, time_ms):
     q4 = q[:, :, None, :]
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         q4, kc, vc, attn_mask=mask, enable_gqa=True))
+    # the same two calls replayed from CUDA graphs: the device's time
+    # alone, where the host's dispatch outlasts the L2 flush
+    graph = {"ms": graph_ms(torch, time_ms,
+                            lambda: decode_attention(q, kc, vc, lengths)),
+             "library_ms": graph_ms(
+                 torch, time_ms, lambda: F.scaled_dot_product_attention(
+                     q4, kc, vc, attn_mask=mask, enable_gqa=True))}
     nbytes = 2 * Hkv * D * 2 * int(lens.sum()) + 2 * B * H * D * 2 + 4 * B
     bms = nbytes / PEAK_HBM_BYTES * 1e3
     emit(7, kernel="decode_attention", B=B, H=H, Hkv=Hkv, D=D, S=S,
          lengths=lens.tolist(), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-         bound_ms=bms, fraction_of_bound=bms / ms, blocks=B * Hkv,
+         graph_replay=graph, bound_ms=bms, fraction_of_bound=bms / ms,
+         n_split=n_split,
+         keys_per_split=kps, blocks=B * Hkv * n_split, combine_blocks=B * H,
          max_abs_err_vs_plain=dec_err, launches=launches["decode_attention"])
     entries.append({"name": "decode_attention",
                     "source": MODEL_KERNELS["decode_attention"][0],
@@ -853,8 +896,15 @@ def flash_phase(torch, np, time_ms, dev):
     to the key tail, GQA by ``enable_gqa``), which the port never calls.
     Returns the cases."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (BLOCK_Q, KERNEL,
+                                                     flash_attention,
                                                      flash_attention_plain)
+    # the bfloat16 path's tensor-core instructions in the built library
+    mma_sass = sass_counts(KERNEL.lib_path, "flash_attention_mma_kernel")
+    assert mma_sass is not None, "cuobjdump could not read the flash library"
+    tensor_core = mma_sass["HMMA"] + mma_sass["HGMMA"]
+    assert tensor_core > 0, ("no tensor-core instruction in the bfloat16 "
+                             "flash kernel", mma_sass)
     cases = []
     for i, ((B, H, Hkv, Sq, Sk, D), dt) in enumerate(FLASH_CASES):
         dtype = getattr(torch, dt)
@@ -890,9 +940,10 @@ def flash_phase(torch, np, time_ms, dev):
                       "bound_ms": bms, "bound_by": by,
                       "fraction_of_bound": bms / ms, "flops": flops,
                       "bytes": nbytes, "o_err": o_err, "lse_err": lse_err,
-                      "blocks": B * H * ((Sq + 63) // 64)})
+                      "blocks": B * H * -(-Sq // BLOCK_Q[(dtype, D)])})
         del q, k, v, o, lse
     emit(10, kernel="flash_attention", cases=cases,
+         bf16_sass=mma_sass, bf16_tensor_core_instructions=tensor_core,
          tol={"float32": FLASH_F32_TOL, "bfloat16": FLASH_BF16_TOL},
          library="scaled_dot_product_attention(enable_gqa=True), causal "
                  "aligned to the key tail")

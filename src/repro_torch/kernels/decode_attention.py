@@ -8,27 +8,45 @@ Replaces ``src/repro/kernels/decode_attention.py`` (``decode_attention`` →
 Pallas kernel computes, including its behaviour on a row with no valid
 key: zeros (ROADMAP §C, "Rows with no valid key"), where
 :func:`repro_torch.kernels.ref.decode_attention` returns the mean of V.
+Both cut the cache into the splits of :func:`split_plan`, take each
+split's softmax state (m, l, acc) in f32, and combine the splits'
+states (flash-decoding).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..core.errors import InvalidArgError
 from ._cuda import DTYPE_CODES, CudaKernel, check_cuda_tensor, refuse_grad
 
 NEG_INF = -1e30
-BLOCK_K = 256                # the Pallas kernel's default key block
-MAX_HEAD_DIM = 256           # the kernel keeps D / 32 dims per lane
-MAX_GROUP = 32               # one warp per query head of a KV group
+TILE = 64                    # the CUDA kernel's key tile
+TARGET_BLOCKS = 2 * 132      # two blocks for each SM of an H100
+MAX_HEAD_DIM = 256           # a block's 128 threads hold the G * D outputs,
+MAX_GROUP = 32               # 32 pairs of dims each at most
 
 KERNEL = CudaKernel(
     "decode_attention", "decode_attention.cu", "decode_attention_launch",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def split_plan(B: int, Hkv: int, S: int) -> Tuple[int, int]:
+    """(n_split, keys_per_split) for a cache of capacity S: whole
+    :data:`TILE`-key tiles per split, the splits covering S once, and as
+    many splits as give the kernel's grid (B * Hkv, n_split) at least
+    :data:`TARGET_BLOCKS` blocks where S has that many tiles.  It reads
+    shapes only, never the lengths: the wrapper does not synchronise."""
+    tiles = max(1, -(-S // TILE))
+    want = -(-TARGET_BLOCKS // max(1, B * Hkv))
+    per_split = max(1, tiles // want)
+    return -(-tiles // per_split), per_split * TILE
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -36,39 +54,39 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                            lengths: torch.Tensor) -> torch.Tensor:
     """q: (B, H, D); caches: (B, Hkv, S, D); lengths: (B,) -> (B, H, D).
 
-    The Pallas kernel's online softmax over :data:`BLOCK_K`-key blocks,
-    scores scaled by 1/sqrt(D), in f32, written for all rows at once: a
-    block at or past a row's length leaves that row's state untouched
-    (the kernel's ``pl.when``), and a row whose normalizer stays 0
-    returns zeros."""
+    The kernel's function in f32, every split at once: scores scaled by
+    1/sqrt(D), keys at or past a row's length masked; per split of
+    :func:`split_plan`, m = the max score (``NEG_INF`` for a split with
+    no valid key), l = the sum of p = exp(s - m) over its valid keys and
+    acc = p . V; then M = max m, L = sum e^(m - M) l and the output
+    sum e^(m - M) acc / L, with L = 0 taken as 1, so a row with no valid
+    key returns zeros."""
     B, H, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
-    bk = min(BLOCK_K, S)
-    scale = 1.0 / math.sqrt(D)
-    lens = lengths.to(device=q.device, dtype=torch.int64)
-    qf = q.to(torch.float32).reshape(B, Hkv, G, D) * scale
-    m = torch.full((B, Hkv, G), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((B, Hkv, G, D), dtype=torch.float32, device=q.device)
-    for k0 in range(0, S, bk):
-        kb = k_cache[:, :, k0:k0 + bk].to(torch.float32)
-        vb = v_cache[:, :, k0:k0 + bk].to(torch.float32)
-        s = torch.matmul(qf, kb.transpose(-1, -2))              # (B,Hkv,G,bk)
-        cols = k0 + torch.arange(kb.shape[2], device=q.device)
-        s = torch.where(cols[None, None, None, :] < lens[:, None, None, None],
-                        s, torch.full_like(s, NEG_INF))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l_new = alpha * l + p.sum(dim=-1)
-        acc_new = acc * alpha[..., None] + torch.matmul(p, vb)
-        active = (k0 < lens)[:, None, None]
-        m = torch.where(active, m_new, m)
-        l = torch.where(active, l_new, l)
-        acc = torch.where(active[..., None], acc_new, acc)
-    l = torch.where(l == 0.0, torch.ones_like(l), l)
-    return (acc / l[..., None]).to(q.dtype).reshape(B, H, D)
+    n_split, kps = split_plan(B, Hkv, S)
+    dev = q.device
+    lens = lengths.to(device=dev, dtype=torch.int64).clamp(max=S)
+    pad = (0, 0, 0, n_split * kps - S)
+    kf = F.pad(k_cache.to(torch.float32), pad).reshape(B, Hkv, n_split, kps,
+                                                       D)
+    vf = F.pad(v_cache.to(torch.float32), pad).reshape(B, Hkv, n_split, kps,
+                                                       D)
+    qf = q.to(torch.float32).reshape(B, Hkv, 1, G, D) * (1.0 / math.sqrt(D))
+    s = torch.matmul(qf, kf.transpose(-1, -2))          # (B,Hkv,n,G,kps)
+    keys = torch.arange(n_split * kps, device=dev).reshape(n_split, 1, kps)
+    ok = keys < lens[:, None, None, None, None]         # (B,1,n,1,kps)
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)                                  # (B,Hkv,n,G)
+    p = torch.where(ok, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    acc = torch.matmul(p, vf)                           # (B,Hkv,n,G,D)
+    M = m.amax(dim=2, keepdim=True)
+    w = torch.exp(m - M)
+    L = (w * l).sum(dim=2)
+    o = (w[..., None] * acc).sum(dim=2)
+    L = torch.where(L == 0.0, torch.ones_like(L), L)
+    return (o / L[..., None]).to(q.dtype).reshape(B, H, D)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -117,11 +135,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
     if B == 0 or H == 0 or D == 0:
         return out
+    n_split, kps = split_plan(B, Hkv, S)
+    part = torch.empty((B, H, n_split, D + 2), dtype=torch.float32,
+                       device=dev)
     KERNEL.launch(dev, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                  lengths.data_ptr(), out.data_ptr(), B, H, Hkv, S, D,
-                  1.0 / math.sqrt(D), DTYPE_CODES[q.dtype],
-                  DTYPE_CODES[k_cache.dtype])
+                  lengths.data_ptr(), out.data_ptr(), part.data_ptr(), B, H,
+                  Hkv, S, D, 1.0 / math.sqrt(D), n_split, kps,
+                  DTYPE_CODES[q.dtype], DTYPE_CODES[k_cache.dtype])
     return out
 
 
-__all__ = ["KERNEL", "decode_attention", "decode_attention_plain"]
+__all__ = ["KERNEL", "TILE", "decode_attention", "decode_attention_plain",
+           "split_plan"]

@@ -7,10 +7,16 @@ Replaces ``src/repro/kernels/flash_attention.py`` (``flash_attention`` →
 :func:`flash_attention_plain` for CPU tensors.  Both return the output
 and the row log-sum-exp ``lse`` (float32), the residual the blocked
 backward (:mod:`repro_torch.models.flash`) reads.  Both compute what the
-Pallas kernel computes: scores of the f32-upcast, ``sm_scale``-scaled q
-against k, the causal mask aligned to the key tail, the online softmax in
-f32 over key tiles, and zeros for a row with no valid key.  One
-difference, where the Pallas kernel's output is an artifact of its
+Pallas kernel computes: f32 scores of q against k scaled by
+``sm_scale``, the causal mask aligned to the key tail, the online
+softmax in f32 over key tiles, and zeros for a row with no valid key.
+For bfloat16 inputs the kernel runs both products on tensor cores, and
+the plain version follows its arithmetic: ``sm_scale`` applied to the
+f32 scores after the product, and P multiplied by V as two bfloat16
+parts, ``hi = bf16(p)`` and ``lo = bf16(p - hi)`` (:func:`_p_operand`),
+so that each p keeps about 16 significant bits.  For float32 inputs both
+are the f32 function of the Pallas kernel, q scaled before the product.
+One difference, where the Pallas kernel's output is an artifact of its
 blocking: there a masked score still adds ``exp(NEG_INF - NEG_INF) = 1``
 to a row that has seen no valid key yet, so a row with no valid key
 returns zeros only when its whole q block is masked and otherwise the
@@ -37,6 +43,10 @@ from ._cuda import DTYPE_CODES, CudaKernel, check_cuda_tensor, refuse_grad
 NEG_INF = -1e30
 BLOCK_K = 64                 # the CUDA kernel's key tile
 HEAD_DIMS = (64, 128)        # the head sizes the kernel is instantiated for
+#: query rows per CUDA block, by (dtype, head size): the tensor-core
+#: path's 4 warps hold 32 rows each at D = 64 and 16 at D = 128
+BLOCK_Q = {(torch.bfloat16, 64): 128, (torch.bfloat16, 128): 64,
+           (torch.float32, 64): 64, (torch.float32, 128): 64}
 
 KERNEL = CudaKernel(
     "flash_attention", "flash_attention.cu", "flash_attention_launch",
@@ -46,6 +56,14 @@ KERNEL = CudaKernel(
 
 def _scale(D: int, sm_scale: Optional[float]) -> float:
     return float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(D)
+
+
+def _p_operand(p: torch.Tensor) -> torch.Tensor:
+    """The probabilities as the tensor-core path multiplies them by V:
+    ``hi + lo`` with ``hi = bf16(p)`` and ``lo = bf16(p - hi)``, in f32
+    (the sum is exact)."""
+    hi = p.to(torch.bfloat16).to(p.dtype)
+    return hi + (p - hi).to(torch.bfloat16).to(p.dtype)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,8 +77,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :data:`BLOCK_K`-key tiles: q upcast and scaled, f32 scores, masked
     scores set to ``NEG_INF`` and given p = 0, the running max,
     normalizer and accumulator in f32; ``l == 0`` is taken as 1, and
-    ``lse = m + log(l)``.  A tile wholly masked for a row leaves its
-    m, l and acc bit for bit as they were (p = 0, alpha = 1), so the
+    ``lse = m + log(l)``.  A bfloat16 q follows the tensor-core kernel:
+    the scores are scaled after the product, and P enters the product
+    with V as :func:`_p_operand`.  A tile wholly masked for a row leaves
+    its m, l and acc bit for bit as they were (p = 0, alpha = 1), so the
     kernel's skipping of such tiles computes the same function.  A
     float64 q (which the kernel does not take) is computed, and its lse
     returned, in float64, for gradient checks."""
@@ -69,7 +89,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     G = H // Hkv
     dev = q.device
     f32 = torch.promote_types(q.dtype, torch.float32)
-    qf = q.to(f32) * _scale(D, sm_scale)
+    mma = q.dtype == torch.bfloat16      # the tensor-core path's arithmetic
+    scale = _scale(D, sm_scale)
+    qf = q.to(f32) if mma else q.to(f32) * scale
     kf = k.to(f32).repeat_interleave(G, dim=1) if G > 1 else k.to(f32)
     vf = v.to(f32).repeat_interleave(G, dim=1) if G > 1 else v.to(f32)
     rows = torch.arange(Sq, device=dev)[:, None] + (Sk - Sq)
@@ -81,13 +103,16 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         cols = k0 + torch.arange(kb.shape[2], device=dev)[None, :]
         ok = (cols <= rows) if causal else torch.ones_like(cols <= rows)
         s = torch.matmul(qf, kb.transpose(-1, -2))
+        if mma:
+            s = s * scale
         s = torch.where(ok, s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.where(ok, torch.exp(s - m_new[..., None]),
                         torch.zeros_like(s))
         alpha = torch.exp(m - m_new)
         l = alpha * l + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.matmul(p, vb)
+        acc = acc * alpha[..., None] + torch.matmul(
+            _p_operand(p) if mma else p, vb)
         m = m_new
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     return (acc / l_safe[..., None]).to(q.dtype), m + torch.log(l_safe)
@@ -134,6 +159,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     if B == 0 or H == 0:
         return o, lse
+    if q.dtype == torch.bfloat16:
+        # the tensor-core path copies 16 bytes at a time; a view that
+        # starts elsewhere is copied first
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     KERNEL.launch(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   o.data_ptr(), lse.data_ptr(), B, H, Hkv, Sq, Sk, D,
                   _scale(D, sm_scale), int(bool(causal)),
@@ -141,5 +171,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-__all__ = ["BLOCK_K", "HEAD_DIMS", "KERNEL", "flash_attention",
+__all__ = ["BLOCK_K", "BLOCK_Q", "HEAD_DIMS", "KERNEL", "flash_attention",
            "flash_attention_plain"]

@@ -46,7 +46,8 @@ from repro_torch.core.errors import BuildError, InvalidArgError
 from repro_torch.core.nvcc import build_parallel, find_nvcc
 from repro_torch.kernels import KERNELS
 from repro_torch.kernels.decode_attention import (decode_attention,
-                                                  decode_attention_plain)
+                                                  decode_attention_plain,
+                                                  split_plan)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
@@ -107,12 +108,30 @@ def test_rmsnorm_kernel_matches_plain(dev, rows, d, xdt, wdt):
 
 DECODE_SHAPES = [
     # B, H, Hkv, D, S: the serving path's, then the reference tests', then
-    # a ragged S and a D the 16-byte loads do not divide
+    # a ragged S and a D the 16-byte loads do not divide; then lengths on
+    # the split boundaries, every length 0, and a group of 32 query heads
     (8, 9, 3, 64, 2048),
     (2, 8, 2, 64, 512),
     (4, 8, 1, 128, 256),
     (2, 4, 2, 20, 100),
+    (5, 9, 3, 64, 1024),
+    (3, 6, 2, 64, 300),
+    (2, 32, 1, 64, 384),
 ]
+SPLIT_EDGES = (5, 9, 3, 64, 1024)    # lengths keys_per_split - 1, + 0, + 1
+ALL_EMPTY = (3, 6, 2, 64, 300)       # every length 0
+
+
+def _decode_lengths(lens, B, H, Hkv, D, S):
+    """The lengths a case of DECODE_SHAPES runs with: ``lens`` (drawn
+    from the seed), with rows 1-3 on the split boundaries of
+    :data:`SPLIT_EDGES` or every row 0 for :data:`ALL_EMPTY`."""
+    if (B, H, Hkv, D, S) == SPLIT_EDGES:
+        _, kps = split_plan(B, Hkv, S)
+        lens[1:4] = kps - 1, kps, kps + 1
+    elif (B, H, Hkv, D, S) == ALL_EMPTY:
+        lens[:] = 0
+    return lens
 
 
 @pytest.mark.cuda
@@ -128,14 +147,16 @@ def test_decode_attention_kernel_matches_plain(dev, B, H, Hkv, D, S, qdt,
     vc = _t(rng.normal(size=(B, Hkv, S, D)), cdt, dev)
     lens = rng.integers(0, S + 1, B).astype(np.int32)
     lens[0], lens[-1] = 0, S
-    lengths = torch.tensor(lens, device=dev)
+    lengths = torch.tensor(_decode_lengths(lens, B, H, Hkv, D, S),
+                           device=dev)
     before = KERNELS[1].launches
     got = decode_attention(q, kc, vc, lengths)
     want = decode_attention_plain(q, kc, vc, lengths)
     torch.cuda.synchronize()
     assert KERNELS[1].launches == before + 1
     assert got.dtype == qdt and got.shape == (B, H, D)
-    assert torch.all(got[0] == 0), "a row with no valid key returns zeros"
+    assert torch.all(got[lengths == 0] == 0), \
+        "a row with no valid key returns zeros"
     rtol, atol = _decode_tol(qdt)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), atol=atol,
@@ -155,7 +176,8 @@ def test_decode_attention_tolerance_sees_a_length_off_by_one(dev, B, H, Hkv,
     vc = _t(rng.normal(size=(B, Hkv, S, D)), torch.bfloat16, dev)
     lens = rng.integers(2, S, B).astype(np.int32)
     lens[0], lens[-1] = 2, S
-    lengths = torch.tensor(lens, device=dev)
+    lengths = torch.tensor(_decode_lengths(lens, B, H, Hkv, D, S),
+                           device=dev)
     got = decode_attention(q, kc, vc, lengths).float()
     rtol, atol = _decode_tol(qdt)
     for shift in (-1, 1):
@@ -166,6 +188,20 @@ def test_decode_attention_tolerance_sees_a_length_off_by_one(dev, B, H, Hkv,
                 continue                   # length S has no key past it
             assert not torch.allclose(got[b], other[b], rtol=rtol,
                                       atol=atol), (shift, b, int(lens[b]))
+
+
+@pytest.mark.cuda
+def test_decode_attention_counts_one_launch_per_call(dev):
+    """The split kernel and the combine are one launch of the wrapper,
+    so a decode step of smollm-135m counts one per layer."""
+    q = torch.randn(8, 9, 64, device=dev, dtype=torch.bfloat16)
+    kc = torch.randn(8, 3, 2048, 64, device=dev, dtype=torch.bfloat16)
+    lengths = torch.arange(8, dtype=torch.int32, device=dev) * 250
+    before = KERNELS[1].launches
+    outs = [decode_attention(q, kc, kc, lengths) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert KERNELS[1].launches == before + 5
+    assert all(torch.equal(o, outs[0]) for o in outs), "not deterministic"
 
 
 @pytest.mark.cuda
@@ -352,6 +388,8 @@ FLASH_SHAPES = [
     (1, 6, 2, 200, 70, 64),
     (3, 2, 2, 77, 77, 64),
     (2, 4, 1, 1, 129, 128),
+    (2, 4, 2, 77, 93, 128),     # D = 128, Sq and Sk not multiples of 16
+    (2, 6, 3, 37, 50, 64),      # Sq < 64: one partial q tile
 ]
 
 
@@ -407,6 +445,26 @@ def test_flash_tolerance_sees_a_causal_offset_off_by_one(dev, B, H, Hkv, Sq,
     for shift in (-1, 1):
         assert not torch.allclose(o, _dense_attention(q, k, v, shift),
                                   **FLASH_F32_TOL), shift
+
+
+@pytest.mark.cuda
+def test_flash_attention_builds_without_spills(dev, tmp_path):
+    """``nvcc -Xptxas -v`` on the kernel's source, with the library's
+    flags: every kernel of it, the tensor-core ones included, keeps its
+    registers (no spill stores or loads)."""
+    import subprocess
+    from repro_torch.core.nvcc import CSRC_DIR, NVCC_FLAGS
+    from repro_torch.kernels.flash_attention import KERNEL
+
+    r = subprocess.run(
+        [find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC_DIR),
+         "-o", str(tmp_path / "flash.so"), str(KERNEL.source_path)],
+        capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout + r.stderr
+    lines = [ln for ln in (r.stdout + r.stderr).splitlines()
+             if "spill" in ln]
+    assert lines and all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+                         for ln in lines), "\n".join(lines)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the ``cuda`` work-group target's real-size kernels on several trees.
+"""Run ``chip_smoke.py`` on several trees in turns and tabulate its times.
 
 Two steps.  In a git checkout, ``prepare`` unpacks the trees to compare
 under ``OUT`` (a directory that ``.gitignore`` lists, such as ``build/``):
@@ -17,9 +17,13 @@ On a machine with one card, ``run`` then runs ``python3 chip_smoke.py``
 from each named tree in the order given (for example ``parent no_ranges
 change change no_ranges parent``, so that drift in the card's clocks
 shows), writes each run's whole output to ``LOGS/<i>-<tree>.log`` and
-prints a table of the phase-5 kernels: ms, threads per block, the
+prints a table of the phase-5 kernels (ms, threads per block, the
 ``__syncthreads()`` kept in the source, direct region flow, static SASS
-counts.  It exits non-zero if any run fails.
+counts), then one line per phase of the model kernels and the paths
+that run them: phase 7's decode attention and rmsnorm, phase 10's flash
+cases, serving's tok/s, decode-step ms and device time a step (phases 6
+and 8), training's median step and device time a step (phase 11).  It
+exits non-zero if any run fails.
 
   python3 tools/cuda_target_ab.py prepare build/ab HEAD
   python3 tools/cuda_target_ab.py run build/ab --logs build/ab/logs \\
@@ -67,6 +71,59 @@ def prepare(out: str, parent: str) -> None:
     print(f"parent {parent}, change {tree}, no_ranges under {out}")
 
 
+def _ms(x):
+    return "-" if x is None else f"{x:.4f}"
+
+
+def summary(d: dict) -> str:
+    """One line of a phase past 5: the numbers the comparison reads."""
+    p = d.get("phase")
+    if p in (6, 8):
+        prof = d.get("decode_profile") or (d.get("profile") or {}).get(
+            "decode", {})
+        return (f"phase {p} {d.get('path')} {d['serve']['arch']}: "
+                f"{d['tok_s']:.1f} tok/s, decode step "
+                f"{d['decode_step_ms_median']:.2f} ms, device "
+                f"{prof.get('device_busy_ms_per_step', 0):.3f} ms/step, "
+                f"idle {prof.get('device_idle_share', 0):.3f}, "
+                f"launches {d['launches']}")
+    if p == 7 and "cases" in d:
+        return " ".join([f"phase 7 {d['kernel']}:"] + [
+            f"{c['rows']}x{c['d']} {c['x'][6:]}/{c['w'][6:]} "
+            f"{_ms(c['ms'])} (lib {_ms(c['library_ms'])})"
+            for c in d["cases"]])
+    if p == 7:
+        return (f"phase 7 {d['kernel']}: {_ms(d['ms'])} ms, plain "
+                f"{_ms(d['plain_ms'])}, library {_ms(d['library_ms'])}, "
+                f"bound {d['bound_ms']:.5f}, blocks {d.get('blocks')}, "
+                f"err {d['max_abs_err_vs_plain']:.3g}, graph replay "
+                f"{d.get('graph_replay')}")
+    if p == 9:
+        return " ".join([f"phase 9 {d['kernel']}:"] + [
+            f"{c['shape']} {c['dtype'][6:]} {_ms(c['ms'])}"
+            for c in d["cases"]])
+    if p == 10:
+        return " ".join([f"phase 10 {d['kernel']} (tensor-core "
+                         f"instructions {d.get('bf16_tensor_core_instructions')}"
+                         f"):"] + [
+            f"{c['shape']} {c['dtype']} {_ms(c['ms'])} (lib "
+            f"{_ms(c['library_ms'])}, bound {c['bound_ms']:.5f}, o_err "
+            f"{c['o_err']:.3g})" for c in d["cases"]])
+    if p == 11:
+        prof = d.get("step_profile", {})
+        return (f"phase 11 train: step median {d['step_median_s']:.4f} s, "
+                f"{d['tokens_per_s']:.0f} tokens/s, loss {d['losses'][0]:.4f}"
+                f" -> {d['losses'][-1]:.4f}, device "
+                f"{prof.get('device_busy_ms_per_step', 0):.1f} ms/step, "
+                f"idle {prof.get('device_idle_share', 0):.3f}, peak "
+                f"{d['peak_memory_gb']:.2f} GB")
+    if p == 12:
+        return (f"phase 12 grad check: max rel "
+                f"{max(d['grad_rel_err'].values()):.3g}, fault "
+                f"{max(d['fault_grad_rel_err'].values()):.3g}")
+    return f"phase {p}"
+
+
 def run(out: str, logs: str, trees) -> int:
     os.makedirs(logs, exist_ok=True)
     failed = 0
@@ -79,7 +136,7 @@ def run(out: str, logs: str, trees) -> int:
         failed += r.returncode != 0
         print(f"== {i} {name} rc={r.returncode}")
         for ln in r.stdout.splitlines():
-            if not ln.startswith("{"):
+            if not ln.startswith('{"phase"'):
                 continue
             d = json.loads(ln)
             if d.get("phase") == 5:
@@ -87,6 +144,8 @@ def run(out: str, logs: str, trees) -> int:
                       f"threads {d.get('threads_per_block')}  "
                       f"barriers {d.get('barriers')}  "
                       f"direct {d.get('direct')}  sass {d.get('sass')}")
+            else:
+                print(summary(d))
         # the card's name and power limit, then the result line
         print("\n".join(r.stdout.splitlines()[-2:]) or "(no output)",
               flush=True)
