@@ -54,10 +54,12 @@ or launch error raises and the script exits non-zero.
      those 8 rows are profiled
      (``torch.profiler``): device busy time and idle share per step, the
      kernel launches per step and the kernels that take the most time;
-  7. the model kernels at the serving path's shapes, each against its
-     plain version on the same CUDA tensors (rmsnorm: rows 8 and 512, d
-     576, float32 within ``rtol=1e-5, atol=1e-6``, bfloat16 within one
-     bfloat16 ulp; decode attention: 8 x 9 heads over 3 KV heads of 64,
+  7. the model kernels at the serving and training paths' shapes, each
+     against its plain version on the same CUDA tensors (rmsnorm:
+     :data:`RMS_CASES`, rows 8 and 512 at d 576, 8 at mamba2's d 1536 and
+     3072, the training forward's 16,384 x 576, float32 within
+     ``rtol=1e-5, atol=1e-6``, bfloat16 within one bfloat16 ulp; decode
+     attention: 8 x 9 heads over 3 KV heads of 64,
      a 2048-token bfloat16 cache, lengths from the seed with a 0 and a
      2048, within one bfloat16 ulp, ``rtol=2**-7, atol=1e-4``, and zeros
      for the empty row; every row must fail that tolerance against the
@@ -66,9 +68,9 @@ or launch error raises and the script exits non-zero.
      then timed like phase 5 beside their plain versions, their bounds
      and the PyTorch call that computes the same function (``F.rms_norm``;
      ``scaled_dot_product_attention`` with the length mask and
-     ``enable_gqa=True``), which the port never calls; decode attention
-     and its library call again replayed from CUDA graphs, without the
-     host's dispatch;
+     ``enable_gqa=True``), which the port never calls; rmsnorm at 8 x 576
+     and decode attention, and their library calls, again replayed from
+     CUDA graphs, without the host's dispatch;
   8. serving mamba2-780m (main path): ``repro_torch.launch.serve`` at
      full width (48 layers, d 1536, 48 SSD heads of 64, state 128, vocab
      50280; random weights from seed 0) with 8 slots and a 2048-token
@@ -83,15 +85,19 @@ or launch error raises and the script exits non-zero.
      float32 with the same weights within ``atol=1e-3``, a limit that the
      plain run with its prefill state taken one token short must fail.
      One prefill and 5 decode steps are profiled as in phase 6;
-  9. ``ssd_scan`` against its plain version on the same CUDA tensors, at
-     the served prefill's shape (1 x 512 tokens x 48 heads x 64, state
-     128, one group), at (4, 2048) of the same, and with 4 groups and a
-     ragged s (1000), in bfloat16 and float32: y and the final state
-     within ``SSD_F32_TOL`` (float32) and one bfloat16 ulp for a
-     bfloat16 y, every case failing the state tolerance against the plain
-     version given s - 1 steps; then timed like phase 5 beside the plain
-     version's time and the bound (no single PyTorch call computes the
-     scan, so no library time);
+  9. ``ssd_scan``: its bfloat16 kernels' SASS must hold tensor-core
+     instructions (``HMMA``); then against its plain version on the same
+     CUDA tensors, at the served prefill's shape (1 x 512 tokens x 48
+     heads x 64, state 128, one group), at (4, 2048) of the same, and with
+     4 groups and a ragged s (1000), in bfloat16 and float32: y and the
+     final state within ``SSD_F32_TOL`` (float32) and one bfloat16 ulp for
+     a bfloat16 y, every case failing the state tolerance against the
+     plain version given s - 1 steps; then timed like phase 5 beside the
+     plain version's time and the bound (no single PyTorch call computes
+     the scan, so no library time), with the CUDA launches a call makes
+     and their blocks (``cuda_launches``: the library's own plan of its
+     grids), and the served prefill's call
+     replayed from a CUDA graph;
  10. ``flash_attention``: its bfloat16 kernel's SASS must hold
      tensor-core instructions (``HMMA``); then against its plain version,
      causal, at the training shape (8 x 9 heads over 3 KV heads x 2048 x
@@ -173,6 +179,17 @@ LOGIT_STEPS = 8             # decode steps of the kernels-vs-plain check
 # order only and one key moves the logits by about 1e-2 (PERF.md).
 LOGIT_ATOL = 2 * 0.0625
 LOGIT_ATOL_F32 = 1e-3
+# phase 7: rmsnorm cases, (rows, d, x dtype, w dtype): a decode step's
+# shape first (its time is the kernels line's, and it is replayed from a
+# CUDA graph too), then the serving prefill's rows, mamba2's widths (the
+# layer norm at 1536, the gated norm at 3072) and the training forward's
+# 16,384 rows.  Float32 within rtol=1e-5, atol=1e-6 (the squares are
+# summed in other orders); bfloat16 within one bfloat16 ulp
+RMS_CASES = [(8, 576, "bfloat16", "bfloat16"), (8, 576, "bfloat16", "float32"),
+             (8, 576, "float32", "float32"), (512, 576, "bfloat16", "bfloat16"),
+             (512, 576, "float32", "float32"),
+             (8, 1536, "bfloat16", "bfloat16"), (8, 3072, "bfloat16", "bfloat16"),
+             (16384, 576, "bfloat16", "bfloat16")]
 # decode attention, bfloat16 q: both sides read the same cache values,
 # accumulate in float32 and round once, so one bfloat16 ulp
 DEC_RTOL, DEC_ATOL = 2.0 ** -7, 1e-4
@@ -609,13 +626,9 @@ def serve_phase(torch, np, time_ms):
 
     # -- 7. each model kernel against its plain version, then timed
     entries = []
-    d = cfg.d_model
     rms_err, rms_cases = 0.0, []
-    for rows, xdt, wdt in ((8, torch.bfloat16, torch.bfloat16),
-                           (8, torch.bfloat16, torch.float32),
-                           (8, torch.float32, torch.float32),
-                           (512, torch.bfloat16, torch.bfloat16),
-                           (512, torch.float32, torch.float32)):
+    for rows, d, xdt, wdt in RMS_CASES:
+        xdt, wdt = getattr(torch, xdt), getattr(torch, wdt)
         x = (torch.tensor(rng.standard_normal((rows, d)), device=dev) * 3) \
             .to(xdt)
         w = torch.tensor(rng.standard_normal(d), device=dev).to(wdt)
@@ -632,9 +645,18 @@ def serve_phase(torch, np, time_ms):
         wl = w.to(xdt)
         lib_ms = time_ms(lambda: F.rms_norm(x, (d,), wl, 1e-6))
         bms = nbytes / PEAK_HBM_BYTES * 1e3
-        rms_cases.append({"rows": rows, "d": d, "x": str(xdt), "w": str(wdt),
-                          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                          "bound_ms": bms, "fraction_of_bound": bms / ms})
+        case = {"rows": rows, "d": d, "x": str(xdt), "w": str(wdt), "ms": ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+                "fraction_of_bound": bms / ms}
+        if not rms_cases:
+            # the decode step's call again, replayed from CUDA graphs: the
+            # device's time alone, where the host's dispatch outlasts the
+            # L2 flush
+            case["graph_replay"] = {
+                "ms": graph_ms(torch, time_ms, lambda: rmsnorm(x, w)),
+                "library_ms": graph_ms(
+                    torch, time_ms, lambda: F.rms_norm(x, (d,), wl, 1e-6))}
+        rms_cases.append(case)
     emit(7, kernel="rmsnorm", cases=rms_cases, max_abs_err_vs_plain=rms_err,
          launches=launches["rmsnorm"])
     main_case = rms_cases[0]      # the decode step's shape and dtypes
@@ -733,7 +755,8 @@ def ssm_serve_phase(torch, np, time_ms):
     against its plain version, timed.  Returns the kernels line's entry
     of ssd_scan."""
     from repro_torch.kernels import KERNELS
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import (KERNEL, cuda_launches, ssd_scan,
+                                              ssd_scan_plain)
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.models import forward, init_caches
@@ -822,7 +845,12 @@ def ssm_serve_phase(torch, np, time_ms):
     del eng, alone, params
     torch.cuda.empty_cache()
 
-    # -- 9. ssd_scan against its plain version, then timed
+    # -- 9. ssd_scan against its plain version, then timed; the bfloat16
+    # path's tensor-core instructions in the built library first
+    mma_sass = sass_counts(KERNEL.lib_path, "mma_kernel")
+    assert mma_sass is not None, "cuobjdump could not read the ssd library"
+    assert mma_sass["HMMA"] + mma_sass["HGMMA"] > 0, \
+        ("no tensor-core instruction in the bfloat16 ssd kernels", mma_sass)
     cases, err = [], 0.0
     for i, (b, s, h, p, g, n, chunk) in enumerate(SSD_CASES):
         for dtype in (torch.bfloat16, torch.float32):
@@ -855,18 +883,31 @@ def ssm_serve_phase(torch, np, time_ms):
             flops, bf16_flops, nbytes = ssd_flops_bytes(
                 b, s, h, p, g, n, chunk, x.element_size())
             bms, by = bound(flops, nbytes, bf16_flops)
-            cases.append({"shape": [b, s, h, p], "g": g, "n": n,
-                          "chunk": chunk, "dtype": str(dtype), "ms": ms,
-                          "plain_ms": plain_ms, "bound_ms": bms,
-                          "bound_by": by, "fraction_of_bound": bms / ms,
-                          "y_err": y_err, "state_err": st_err,
-                          "short_state_diff": float((st - short).abs().max()),
-                          "blocks": (p + 15) // 16 * h * b})
+            plan = cuda_launches(b, s, h, p, g, n, chunk, dtype)
+            case = {"shape": [b, s, h, p], "g": g, "n": n, "chunk": chunk,
+                    "dtype": str(dtype), "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bms, "bound_by": by,
+                    "fraction_of_bound": bms / ms, "y_err": y_err,
+                    "state_err": st_err,
+                    "short_state_diff": float((st - short).abs().max()),
+                    "cuda_launches_per_call": len(plan),
+                    "blocks": dict(plan)}
+            if not cases:
+                # the served prefill's call again, replayed from a CUDA
+                # graph: the device's time alone, without the host's
+                # dispatch of its launches
+                case["graph_ms"] = graph_ms(
+                    torch, time_ms, lambda: ssd_scan(x, dt, A, B, C, chunk))
+            if dtype == torch.bfloat16:
+                # the device time of each of its kernels (L2 warm)
+                case["profile"] = _profiled(
+                    torch, lambda: ssd_scan(x, dt, A, B, C, chunk), 10)
+            cases.append(case)
             del x, dt, B, C, y, st, py, pst, short
     emit(9, kernel="ssd_scan", cases=cases, max_abs_err_vs_plain=err,
          y_tol={"float32": SSD_F32_TOL, "bfloat16": SSD_Y_BF16_TOL},
          state_tol=SSD_F32_TOL, launches=launches["ssd_scan"],
-         library_ms=None)
+         bf16_sass=mma_sass, library_ms=None)
     main_case = cases[0]     # the served prefill's shape, bfloat16
     return [{"name": "ssd_scan", "source": MODEL_KERNELS["ssd_scan"][0],
              "replaces": MODEL_KERNELS["ssd_scan"][1],

@@ -17,13 +17,25 @@
 // + d * sizeof(w), and does about four operations per element, far below
 // the ~295 operations per byte where the card stops being memory-bound.
 //
-// Design: one warp per row, eight rows per 256-thread block.  Each lane
-// loads 16 bytes at a time where d allows it (neighbouring lanes on
-// neighbouring addresses), squares and sums in f32; the warp reduces with
-// xor shuffles so every lane holds the sum, computes the Newton rsqrt in
-// registers, then makes a second pass over its row (served from L1/L2) to
-// scale and store 16 bytes at a time.  Built with -fmad=false, so each
-// multiply and add rounds once, as the reference's jnp code does.
+// Design: one pass over device memory.  A row is taken by `lanes` lanes
+// of a warp (a power of two up to 32, chosen from d: the largest that
+// divides the row's 16-byte vectors, so d = 576 in bf16, 72 vectors, takes
+// 8 lanes of 9 vectors and a warp holds 4 rows; d 1536 and 3072 take 32
+// lanes of 6 and 12), and each lane holds its VPL vectors of the row in
+// registers (VPL a template argument) from the first read to the store.
+// Its slice of w is loaded into registers in the same breath, as whole
+// 16-byte (or 8-byte) vectors, so the two reads' latencies overlap before
+// the reduction waits on them.  Lanes of a row take neighbouring 16-byte
+// vectors, so a warp's loads are coalesced.  The squares are summed in f32
+// over the lane's elements, then over the row's lanes by xor shuffles
+// (every lane of the row ends with the sum), the Newton rsqrt is computed
+// in registers, and the row is scaled and stored 16 bytes at a time.  VPL
+// is instantiated for the counts the models' widths give: 6, 9 and 12 (d
+// 576, 1536 and 3072 in bf16; 576 and 1536 in f32).  Any other d, and a d
+// that takes no 16-byte vector, goes to a scalar kernel: one warp per row,
+// element by element, a second pass for the output.  Built with
+// -fmad=false, so each multiply and add rounds once, as the reference's
+// jnp code does.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -31,7 +43,8 @@
 
 namespace {
 
-constexpr int kRowsPerBlock = 8;
+constexpr int kWarps = 8;               // warps per block
+constexpr int kThreads = 32 * kWarps;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -59,72 +72,136 @@ __device__ __forceinline__ float vml_rsqrt(float x) {
   return y;
 }
 
-template <typename TX, typename TW, bool kVec>
-__global__ void __launch_bounds__(32 * kRowsPerBlock)
-rmsnorm_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-               TX* __restrict__ y, long long rows, int d, float eps) {
-  constexpr int V = 16 / sizeof(TX);     // elements per 16-byte vector
+// the bytes of w that go with one 16-byte vector of x, as 32-bit words
+template <int WORDS>
+__device__ __forceinline__ void load_words(uint32_t (&dst)[WORDS],
+                                           const void* src) {
+  if constexpr (WORDS == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(src);
+    dst[0] = v.x;
+    dst[1] = v.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < WORDS / 4; ++q) {
+      const uint4 v = reinterpret_cast<const uint4*>(src)[q];
+      dst[4 * q] = v.x;
+      dst[4 * q + 1] = v.y;
+      dst[4 * q + 2] = v.z;
+      dst[4 * q + 3] = v.w;
+    }
+  }
+}
+
+template <typename TX, typename TW, int VPL>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_vec_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                   TX* __restrict__ y, long long rows, int d, float eps,
+                   int lanes_log2) {
+  constexpr int V = 16 / sizeof(TX);             // x elements per vector
+  constexpr int WORDS = V * sizeof(TW) / 4;      // w words per vector
+  const int lanes = 1 << lanes_log2;
   const int lane = threadIdx.x & 31;
-  const long long row =
-      (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  const int sub = lane & (lanes - 1);             // lane within the row
+  const long long warp_row0 =
+      ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) *
+      (32 >> lanes_log2);
+  if (warp_row0 >= rows) return;                 // whole warps leave together
+  // a row past the end repeats the last one (its result is not stored),
+  // so that every lane of the warp takes part in the shuffles
+  const long long row = warp_row0 + (lane >> lanes_log2);
+  const bool store = row < rows;
+  const long long r = store ? row : rows - 1;
+  const TX* xr = x + r * d;
+
+  uint4 xv[VPL];
+  uint32_t wv[VPL][WORDS];
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) {
+    const int i = (k * lanes + sub) * V;
+    xv[k] = *reinterpret_cast<const uint4*>(xr + i);
+    load_words<WORDS>(wv[k], w + i);
+  }
+  float ss = 0.0f;
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) {
+    const TX* e = reinterpret_cast<const TX*>(&xv[k]);
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      const float f = to_f(e[q]);
+      ss = ss + f * f;
+    }
+  }
+  for (int o = lanes >> 1; o > 0; o >>= 1)
+    ss = ss + __shfl_xor_sync(0xffffffffu, ss, o);
+  const float rs = vml_rsqrt(ss / (float)d + eps);
+  if (!store) return;
+  TX* yr = y + r * d;
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) {
+    const TX* e = reinterpret_cast<const TX*>(&xv[k]);
+    const TW* we = reinterpret_cast<const TW*>(wv[k]);
+    uint4 packed;
+    TX* o = reinterpret_cast<TX*>(&packed);
+#pragma unroll
+    for (int q = 0; q < V; ++q) o[q] = from_f<TX>(to_f(e[q]) * rs * to_f(we[q]));
+    *reinterpret_cast<uint4*>(yr + (k * lanes + sub) * V) = packed;
+  }
+}
+
+// any d: one warp per row, element by element
+template <typename TX, typename TW>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_scalar_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                      TX* __restrict__ y, long long rows, int d, float eps) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;               // whole warps leave together
   const TX* xr = x + row * d;
   TX* yr = y + row * d;
-
   float ss = 0.0f;
-  if (kVec) {
-    for (int i = lane * V; i < d; i += 32 * V) {
-      uint4 raw = *reinterpret_cast<const uint4*>(xr + i);
-      const TX* e = reinterpret_cast<const TX*>(&raw);
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-        float f = to_f(e[k]);
-        ss = ss + f * f;
-      }
-    }
-  } else {
-    for (int i = lane; i < d; i += 32) {
-      float f = to_f(xr[i]);
-      ss = ss + f * f;
-    }
+  for (int i = lane; i < d; i += 32) {
+    const float f = to_f(xr[i]);
+    ss = ss + f * f;
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) ss = ss + __shfl_xor_sync(0xffffffffu, ss, o);
   const float r = vml_rsqrt(ss / (float)d + eps);
+  for (int i = lane; i < d; i += 32) yr[i] = from_f<TX>(to_f(xr[i]) * r * to_f(w[i]));
+}
 
-  if (kVec) {
-    for (int i = lane * V; i < d; i += 32 * V) {
-      uint4 raw = *reinterpret_cast<const uint4*>(xr + i);
-      const TX* e = reinterpret_cast<const TX*>(&raw);
-      uint4 packed;
-      TX* o = reinterpret_cast<TX*>(&packed);
-#pragma unroll
-      for (int k = 0; k < V; ++k) o[k] = from_f<TX>(to_f(e[k]) * r * to_f(w[i + k]));
-      *reinterpret_cast<uint4*>(yr + i) = packed;
-    }
-  } else {
-    for (int i = lane; i < d; i += 32) {
-      yr[i] = from_f<TX>(to_f(xr[i]) * r * to_f(w[i]));
-    }
-  }
+template <typename TX, typename TW, int VPL>
+void launch_vec(const void* x, const void* w, void* y, long long rows, int d,
+                float eps, int lanes_log2, cudaStream_t stream) {
+  const long long per_block = (long long)kWarps * (32 >> lanes_log2);
+  const dim3 grid((unsigned)((rows + per_block - 1) / per_block));
+  rmsnorm_vec_kernel<TX, TW, VPL><<<grid, kThreads, 0, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TW*>(w),
+      static_cast<TX*>(y), rows, d, eps, lanes_log2);
 }
 
 template <typename TX, typename TW>
 void launch_typed(const void* x, const void* w, void* y, long long rows, int d,
                   float eps, cudaStream_t stream) {
-  const bool vec = d % (16 / (int)sizeof(TX)) == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  const dim3 grid((unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock));
-  const dim3 block(32 * kRowsPerBlock);
-  if (vec) {
-    rmsnorm_kernel<TX, TW, true><<<grid, block, 0, stream>>>(
-        static_cast<const TX*>(x), static_cast<const TW*>(w),
-        static_cast<TX*>(y), rows, d, eps);
-  } else {
-    rmsnorm_kernel<TX, TW, false><<<grid, block, 0, stream>>>(
-        static_cast<const TX*>(x), static_cast<const TW*>(w),
-        static_cast<TX*>(y), rows, d, eps);
+  constexpr int V = 16 / sizeof(TX);
+  constexpr int WBYTES = V * sizeof(TW);         // w bytes per x vector
+  int vpl = 0, lanes_log2 = 0;
+  if (d % V == 0 && ((reinterpret_cast<uintptr_t>(x) |
+                      reinterpret_cast<uintptr_t>(y)) % 16 == 0) &&
+      reinterpret_cast<uintptr_t>(w) % (WBYTES < 16 ? WBYTES : 16) == 0) {
+    const int nv = d / V;                        // vectors in a row
+    while (lanes_log2 < 5 && nv % (2 << lanes_log2) == 0) ++lanes_log2;
+    vpl = nv >> lanes_log2;
+  }
+  switch (vpl) {
+    case 6: return launch_vec<TX, TW, 6>(x, w, y, rows, d, eps, lanes_log2, stream);
+    case 9: return launch_vec<TX, TW, 9>(x, w, y, rows, d, eps, lanes_log2, stream);
+    case 12: return launch_vec<TX, TW, 12>(x, w, y, rows, d, eps, lanes_log2, stream);
+    default: {
+      const dim3 grid((unsigned)((rows + kWarps - 1) / kWarps));
+      rmsnorm_scalar_kernel<TX, TW><<<grid, kThreads, 0, stream>>>(
+          static_cast<const TX*>(x), static_cast<const TW*>(w),
+          static_cast<TX*>(y), rows, d, eps);
+    }
   }
 }
 
@@ -137,7 +214,7 @@ extern "C" int rmsnorm_launch(const void* x, const void* w, void* y,
                               long long rows, int d, float eps, int xdt,
                               int wdt, void* stream) {
   if (rows <= 0 || d <= 0) return 0;
-  if ((rows + kRowsPerBlock - 1) / kRowsPerBlock > 0x7fffffffLL)
+  if ((rows + kWarps - 1) / kWarps > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (xdt == 0 && wdt == 0) launch_typed<float, float>(x, w, y, rows, d, eps, s);

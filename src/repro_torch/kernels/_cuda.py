@@ -41,6 +41,7 @@ class CudaKernel:
         self.launcher = launcher
         self.argtypes = list(argtypes)
         self.launches = 0
+        self._lib = None
         self._fn = None
         self._err = None
         self._lock = threading.Lock()
@@ -73,8 +74,18 @@ class CudaKernel:
                 err = lib.kernel_error_string
                 err.restype = ctypes.c_char_p
                 err.argtypes = [ctypes.c_int]
-                self._fn, self._err = fn, err
+                self._lib, self._fn, self._err = lib, fn, err
             return self._fn
+
+    def function(self, name: str, restype, argtypes: Sequence[object]):
+        """Another C function of the kernel's library (built and loaded
+        as for :meth:`launch`), such as one that reports a launch's
+        plan.  Calling it adds nothing to ``launches``."""
+        self._load()
+        fn = getattr(self._lib, name)
+        fn.restype = restype
+        fn.argtypes = list(argtypes)
+        return fn
 
     def launch(self, device: torch.device, *args) -> None:
         """Call the C launcher with ``args`` and the current stream of

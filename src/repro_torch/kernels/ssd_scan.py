@@ -18,6 +18,15 @@ the final state as (b, h, p, n) in float32.  ``chunk = min(chunk, s)`` as
 in the reference; where s is not a multiple of it, the steps past s are
 taken with dt = 0, which leaves the state as it was (exp(0 · A) = 1, and
 no input enters), and their y is not returned.
+
+For bfloat16 inputs the kernel runs the chunks in parallel on tensor
+cores, with the state handed from chunk to chunk by a second launch
+(three launches a call; :func:`cuda_launches`).  Its products are exact:
+``C Bᵀ`` has two bfloat16 operands, and it takes each float32 operand of
+the others (``W x``, ``C S``, ``Bᵀ (decay ∘ x)``) as three bfloat16
+parts, which sum back to it.  So it computes the float32 function that
+:func:`ssd_scan_plain` computes, in another summation order.  For
+float32 inputs the kernel keeps its first design, CUDA-core FMAs.
 """
 
 from __future__ import annotations
@@ -30,11 +39,30 @@ from ..core.errors import InvalidArgError
 from ._cuda import DTYPE_CODES, CudaKernel, check_cuda_tensor, refuse_grad
 
 MAX_CHUNK = 64               # the kernel's L x L tile of the decay matrix
-MAX_STATE = 256              # B and C chunks of L x N f32 in shared memory
+MAX_STATE = 256              # B and C chunks of L x N in shared memory
 
 KERNEL = CudaKernel(
     "ssd_scan", "ssd_scan.cu", "ssd_scan_launch",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+
+#: the kernel functions of a call, in launch order, by dtype
+LAUNCHED = {torch.float32: ("ssd_scan_kernel",),
+            torch.bfloat16: ("ssd_state_mma_kernel", "ssd_pass_kernel",
+                             "ssd_output_mma_kernel")}
+
+
+def cuda_launches(b: int, s: int, h: int, p: int, g: int, n: int,
+                  chunk: int, dtype: torch.dtype):
+    """The CUDA launches one call of the kernel makes with these shapes,
+    as [(kernel function, blocks)], from the library's ``ssd_scan_plan``:
+    the grids the launcher itself launches.  Builds and loads the
+    library; empty where the call would launch nothing."""
+    plan = KERNEL.function(
+        "ssd_scan_plan", ctypes.c_int,
+        [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)])
+    blocks = (ctypes.c_longlong * 3)()
+    count = plan(b, s, h, p, g, n, chunk, DTYPE_CODES[dtype], blocks)
+    return list(zip(LAUNCHED[dtype][:count], blocks[:count]))
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -139,10 +167,24 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise InvalidArgError(f"ssd_scan: b={b}, h={h}; the kernel's grid "
                               f"takes at most 65535 of each")
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
+    L = min(chunk, s)
+    scratch = [None, None, None]
+    if x.dtype == torch.bfloat16:
+        # for the three launches: each chunk's own state contribution, the
+        # state entering each chunk as its three bfloat16 parts (what the
+        # tensor cores multiply), each chunk's cs_L
+        nc = -(-s // L)
+        scratch = [torch.empty((b, h, nc, p, n), dtype=torch.float32,
+                               device=dev),
+                   torch.empty((b, h, nc, 3, p, n), dtype=torch.bfloat16,
+                               device=dev),
+                   torch.empty((b, h, nc), dtype=torch.float32, device=dev)]
     KERNEL.launch(dev, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                   B.data_ptr(), C.data_ptr(), y.data_ptr(), state.data_ptr(),
-                  b, s, h, p, g, n, min(chunk, s), DTYPE_CODES[x.dtype])
+                  *(None if t is None else t.data_ptr() for t in scratch),
+                  b, s, h, p, g, n, L, DTYPE_CODES[x.dtype])
     return y, state
 
 
-__all__ = ["KERNEL", "MAX_CHUNK", "MAX_STATE", "ssd_scan", "ssd_scan_plain"]
+__all__ = ["KERNEL", "MAX_CHUNK", "MAX_STATE", "cuda_launches", "ssd_scan",
+           "ssd_scan_plain"]

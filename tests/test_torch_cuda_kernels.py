@@ -38,6 +38,8 @@ On a machine with the card:
   PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_kernels.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -83,8 +85,15 @@ def _t(a, dtype, dev):
     return torch.tensor(a, dtype=torch.float32, device=dev).to(dtype)
 
 
+#: rmsnorm at the models' widths (smollm d 576; mamba2 d 1536 and 3072),
+#: at a decode step's rows, a prefill's and the training forward's, and
+#: two widths that take no 16-byte vector (the scalar kernel)
+RMS_SHAPES = [(rows, d) for d in (576, 1536, 3072) for rows in (8, 512, 16384)] \
+    + [(5, 20), (3, 7)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,d", [(8, 576), (512, 576), (5, 20), (3, 7)])
+@pytest.mark.parametrize("rows,d", RMS_SHAPES)
 @pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain(dev, rows, d, xdt, wdt):
@@ -264,12 +273,18 @@ def test_full_width_forward_advances_both_counters(dev):
 
 SSD_SHAPES = [
     # b, s, h, p, g, n, chunk: the served prefill (mamba2-780m, a 512-token
-    # prompt), a ragged s with two groups, a state wider than 128 with p
-    # not a multiple of 16, a small chunk with three groups
+    # prompt), a long batch (32 chunks of state hand-off), a ragged s with
+    # two groups, a state wider than 128 with p not a multiple of 16, a
+    # small chunk with three groups, p and n odd (no 16-byte row: the
+    # tensor-core path's element-wise loads and stores), p over two
+    # 64-column blocks
     (1, 512, 48, 64, 1, 128, 64),
+    (4, 2048, 48, 64, 1, 128, 64),
     (2, 200, 8, 64, 2, 128, 64),
     (1, 130, 4, 20, 1, 256, 64),
     (3, 37, 6, 16, 3, 16, 8),
+    (2, 70, 4, 13, 1, 21, 32),
+    (1, 100, 2, 80, 2, 32, 16),
 ]
 
 
@@ -452,19 +467,77 @@ def test_flash_attention_builds_without_spills(dev, tmp_path):
     """``nvcc -Xptxas -v`` on the kernel's source, with the library's
     flags: every kernel of it, the tensor-core ones included, keeps its
     registers (no spill stores or loads)."""
+    from repro_torch.kernels.flash_attention import KERNEL
+    spills = ptxas_spills(KERNEL.source_path, tmp_path)
+    assert spills and all(v == (0, 0) for v in spills.values()), spills
+
+
+SPILL_LINE = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def ptxas_spills(source, tmp_path):
+    """``nvcc -Xptxas -v`` on a kernel's source with the library's flags:
+    {kernel function: (bytes of spill stores, bytes of spill loads)}, read
+    from ptxas's line for each function.  A spill line that does not parse
+    fails the test."""
     import subprocess
     from repro_torch.core.nvcc import CSRC_DIR, NVCC_FLAGS
-    from repro_torch.kernels.flash_attention import KERNEL
-
     r = subprocess.run(
         [find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC_DIR),
-         "-o", str(tmp_path / "flash.so"), str(KERNEL.source_path)],
+         "-o", str(tmp_path / "lib.so"), str(source)],
         capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stdout + r.stderr
-    lines = [ln for ln in (r.stdout + r.stderr).splitlines()
-             if "spill" in ln]
-    assert lines and all(" 0 bytes spill stores, 0 bytes spill loads" in ln
-                         for ln in lines), "\n".join(lines)
+    spills, name = {}, None
+    for ln in (r.stdout + r.stderr).splitlines():
+        if "Function properties for " in ln:
+            name = ln.split("Function properties for ", 1)[1].strip()
+        elif "spill" in ln:
+            m = SPILL_LINE.search(ln)
+            assert m and name is not None, ln
+            spills[name] = (int(m.group(1)), int(m.group(2)))
+    return spills
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["ssd_scan", "rmsnorm"])
+def test_redesigned_kernels_build_without_spills(dev, tmp_path, kernel):
+    """Every kernel function of the source keeps its registers: ssd_scan's
+    bfloat16 kernels (the two on tensor cores and the hand-off's two
+    widths), rmsnorm's one-pass kernel at its three vectors per lane and
+    its scalar kernel, each in four dtype pairs.  ssd_scan's float32 scan
+    (``ssd_scan_kernel``) is the first design, kept as it was, and is not
+    held to it."""
+    source = {k.name: k for k in KERNELS}[kernel].source_path
+    spills = ptxas_spills(source, tmp_path)
+    checked = {f: v for f, v in spills.items()
+               if kernel != "ssd_scan" or "ssd_scan_kernel" not in f}
+    expect = 4 if kernel == "ssd_scan" else 4 * (3 + 1)
+    assert len(checked) == expect, sorted(spills)
+    assert all(v == (0, 0) for v in checked.values()), checked
+
+
+@pytest.mark.cuda
+def test_ssd_launch_plan(dev):
+    """The grids ssd_scan's launcher launches, as its library reports
+    them: a bfloat16 call's chunk kernels over (b, h, chunk, 64 columns of
+    P), its hand-off over (b, h, 256 threads of four state entries, or of
+    one where p * n is odd); a float32 call's one scan over (b, h, 16
+    columns of P); none where the launcher would refuse."""
+    from repro_torch.kernels.ssd_scan import cuda_launches
+    bf16 = torch.bfloat16
+    served = dict(cuda_launches(1, 512, 48, 64, 1, 128, 64, bf16))
+    assert served == {"ssd_state_mma_kernel": 384, "ssd_pass_kernel": 384,
+                      "ssd_output_mma_kernel": 384}
+    odd = dict(cuda_launches(2, 70, 4, 13, 1, 21, 32, bf16))
+    assert odd["ssd_pass_kernel"] == 2 * 4 * 2
+    long = dict(cuda_launches(4, 2048, 48, 64, 1, 128, 64, bf16))
+    assert long["ssd_state_mma_kernel"] == 4 * 48 * 32 == \
+        long["ssd_output_mma_kernel"]
+    ragged = dict(cuda_launches(2, 100, 4, 80, 2, 32, 64, bf16))
+    assert ragged["ssd_output_mma_kernel"] == 2 * 4 * 2 * 2
+    assert cuda_launches(1, 512, 48, 64, 1, 128, 64, torch.float32) == \
+        [("ssd_scan_kernel", 192)]
+    assert cuda_launches(1, 512, 48, 64, 5, 128, 64, bf16) == []
 
 
 @pytest.mark.cuda

@@ -88,10 +88,11 @@ def summary(d: dict) -> str:
                 f"idle {prof.get('device_idle_share', 0):.3f}, "
                 f"launches {d['launches']}")
     if p == 7 and "cases" in d:
+        graph = d["cases"][0].get("graph_replay")
         return " ".join([f"phase 7 {d['kernel']}:"] + [
             f"{c['rows']}x{c['d']} {c['x'][6:]}/{c['w'][6:]} "
             f"{_ms(c['ms'])} (lib {_ms(c['library_ms'])})"
-            for c in d["cases"]])
+            for c in d["cases"]] + [f"graph replay {graph}"])
     if p == 7:
         return (f"phase 7 {d['kernel']}: {_ms(d['ms'])} ms, plain "
                 f"{_ms(d['plain_ms'])}, library {_ms(d['library_ms'])}, "
@@ -99,9 +100,14 @@ def summary(d: dict) -> str:
                 f"err {d['max_abs_err_vs_plain']:.3g}, graph replay "
                 f"{d.get('graph_replay')}")
     if p == 9:
-        return " ".join([f"phase 9 {d['kernel']}:"] + [
-            f"{c['shape']} {c['dtype'][6:]} {_ms(c['ms'])}"
-            for c in d["cases"]])
+        return " ".join([f"phase 9 {d['kernel']} (sass {d.get('bf16_sass')}):"]
+                        + [f"{c['shape']} {c['dtype'][6:]} {_ms(c['ms'])}"
+                           f" ({c.get('cuda_launches_per_call')} launches"
+                           + (f", graph {_ms(c['graph_ms'])}"
+                              if "graph_ms" in c else "")
+                           + (f", kernels {c['profile']['top_kernels_ms_per_step']}"
+                              if "profile" in c else "") + ")"
+                           for c in d["cases"]])
     if p == 10:
         return " ".join([f"phase 10 {d['kernel']} (tensor-core "
                          f"instructions {d.get('bf16_tensor_core_instructions')}"
