@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``src/repro_torch``) on one card.
 
-Drives the port's four paths and checks every result: the kernel
+Drives the port's five paths and checks every result: the kernel
 compiler's launch path — KernelBuilder DSL -> IR -> PassManager ->
 WorkGroupPlan -> the hand-written ``cuda`` work-group target -> Context /
 Program / Kernel launch — two serving paths — ``repro_torch.launch.
@@ -12,7 +12,10 @@ published width, through ``rmsnorm`` and the hand-written CUDA
 ``ssd_scan`` — and training: ``repro_torch.launch.train`` -> ``Trainer``
 -> ``loss_fn`` -> smollm-135m at full width, through ``rmsnorm`` and the
 hand-written CUDA ``flash_attention`` in the forward, with the blocked
-backward behind it.  Each phase prints one JSON line; any mismatch, build error
+backward behind it — and the OpenCL host runtime: device-resident
+buffers, maps through a host bounce, an event-DAG queue whose fusion
+rewrite stitches a chain of kernels into one ``cuda`` launch, and the
+Chrome trace.  Each phase prints one JSON line; any mismatch, build error
 or launch error raises and the script exits non-zero.
 
   1. device: the card, torch/CUDA versions, and one parallel ``nvcc``
@@ -123,7 +126,39 @@ or launch error raises and the script exits non-zero.
      step through their plain versions, within ``GRAD_REL_TOL`` of each
      leaf's largest entry, a limit that the plain run with the causal
      mask shifted by one key must fail;
- 13. the kernels line, then the card's name and power limit, then the
+ 13. the host runtime (main path): (a) ``examples/opencl_runtime.py``'s
+     steps up to its co-executor on the ``cuda`` device — 256
+     work-items, local size 64, an out-of-order queue, write -> scale ->
+     offset -> read through one ``Buffer`` — equal to ``host * 2 + 1``
+     bitwise, with monotone event profiles; (b) the rmsnorm -> residual
+     -> quantize chain (``core/examples.py``) over 16,384 x 576 float32
+     elements, smollm-135m's activations of one training forward, in
+     pooled context buffers on an in-order queue, with fusion off and
+     with fusion at flush: ``q`` bitwise equal across the two modes, to
+     the ``vector`` target on the card and to a numpy float32 oracle;
+     ``dag_stats()`` one fused chain, two commands eliminated and the
+     elided bytes; 1 ``cuda`` launch against 3; the intermediates ``y``
+     and ``z`` never materialized, ``torch.cuda.memory_allocated()``
+     grown by the four other buffers only; then ``CHAIN_ROUNDS`` rounds
+     of 20 chains in each mode, each chain's stream span taken with
+     CUDA events around enqueue ... ``finish()`` (L2 flushed before
+     each; the span holds the host's hand-offs, so it is not the card's
+     busy time) and on the host's clock, beside their bounds; (c) a
+     read map of ``q`` equal to ``enqueue_read_buffer``, then a second
+     one, whose staging comes from torch's pinned cache; a write map of
+     a sub-buffer over the middle half of ``x``, written on the host,
+     unmapped, and the chain run again, equal to the oracle on the new
+     ``x``; a launch over a still-mapped buffer failing its event with
+     ``MapError``; the map and unmap times beside the bare copies
+     between the card and a pinned host tensor; (d) the fused run of
+     (b) recorded under ``ctx.trace()``, exported under
+     ``build/repro_torch/`` and valid (``validate_trace``), with one
+     slice per command; then the fused kernel alone against the
+     ``vector`` target on the same tensors, and the three unfused
+     kernels on those tensors, each and back to back, all timed like
+     phase 5; the host time a command is a chain's stream span less its
+     kernels' time, over its commands;
+ 14. the kernels line, then the card's name and power limit, then the
      result line.
 
 Launch counts are set to 0 just before each main-path phase and read
@@ -264,6 +299,16 @@ REAL = [
     ("hist", {"n": 1 << 24, "bins": 16}, {"lsz": 32, "ipt": 4}),
 ]
 QS_N, QS_LSZ = 1 << 22, 64
+# phase 13: the host runtime.  The walk-through at examples/
+# opencl_runtime.py's own size; the chain over smollm-135m's activations
+# of one training forward (16,384 tokens x d 576, float32: 37.7 MB a
+# buffer), timed over CHAIN_ROUNDS rounds of CHAIN_REPS chains in each
+# mode
+HOST_N, HOST_LSZ = 256, 64
+CHAIN = ("rmsnorm_ew", "residual_add", "quantize")
+CHAIN_N, CHAIN_LSZ = 16384 * 576, 256
+CHAIN_SCALE = 16.0
+CHAIN_REPS, CHAIN_ROUNDS = 20, 3
 
 
 def emit(phase, **fields):
@@ -1110,6 +1155,327 @@ def grad_check_phase(torch, np, dev):
     torch.cuda.empty_cache()
 
 
+def build_scale():
+    """``examples/opencl_runtime.py``'s first kernel: x = x * s."""
+    from repro_torch.core import KernelBuilder
+    b = KernelBuilder("scale")
+    x = b.arg_buffer("x", "float32")
+    s = b.arg_scalar("s", "float32")
+    g = b.global_id(0)
+    x[g] = x[g] * s
+    return b.finish()
+
+
+def build_offset():
+    """``examples/opencl_runtime.py``'s second kernel: x = x + o."""
+    from repro_torch.core import KernelBuilder
+    b = KernelBuilder("offset")
+    x = b.arg_buffer("x", "float32")
+    o = b.arg_scalar("o", "float32")
+    g = b.global_id(0)
+    x[g] = x[g] + o
+    return b.finish()
+
+
+def chain_kernels(chain_prog, bufs, inv_rms):
+    """The chain's three kernels with their arguments set over ``bufs``."""
+    k1, k2, k3 = (chain_prog.create_kernel(n) for n in CHAIN)
+    k1.set_args(x=bufs["x"], w=bufs["w"], y=bufs["y"], inv_rms=inv_rms)
+    k2.set_args(y=bufs["y"], r=bufs["r"], z=bufs["z"])
+    k3.set_args(z=bufs["z"], q=bufs["q"], scale=CHAIN_SCALE)
+    return k1, k2, k3
+
+
+def warm_fused_chain(ctx, device, chain_prog):
+    """The chain enqueued over lazy pooled buffers on a queue that is not
+    flushed yet: the queue stitches its pending chain into ``device``'s
+    fused tier under the key its flush-time rewrite looks up
+    (``pending_chain_spec``), so phase 1's wave builds the binary that
+    phase 13 launches.  Returns the queue, its buffers and the spec; the
+    caller finishes the queue after the wave."""
+    bufs = {n: ctx.create_buffer(CHAIN_N, device=device) for n in "xwryzq"}
+    queue = ctx.create_queue(device, fusion="flush")
+    for k in chain_kernels(chain_prog, bufs, 1.0):
+        queue.enqueue_nd_range(k, (CHAIN_N,), (CHAIN_LSZ,))
+    return queue, bufs, queue.pending_chain_spec()
+
+
+def chain_oracle(np, x, w, r, inv_rms):
+    """The chain in numpy float32, op for op as the kernels compute it."""
+    f = np.float32
+    z = (x * w) * f(inv_rms) + r
+    v = np.floor(z * f(CHAIN_SCALE) + f(0.5))
+    return np.maximum(f(-127.0), np.minimum(f(127.0), v))
+
+
+def host_runtime_phase(torch, np, time_ms, flush, ctx, cuda_dev, vec_dev,
+                       host_prog, chain_prog, fused_spec, reset_counts):
+    """Phase 13: the host runtime on the card (see the module docstring).
+    Returns the kernels line's entry for the fused chain."""
+    import threading
+    from repro_torch.core.errors import MapError
+    from repro_torch.core.nvcc import BUILD_DIR
+    from repro_torch.runtime import create_sub_buffer, validate_trace
+
+    # -- (a) examples/opencl_runtime.py up to its co-executor ---------------
+    scale = host_prog.create_kernel("scale")
+    offset = host_prog.create_kernel("offset")
+    host = np.arange(HOST_N, dtype=np.float32)
+    out = np.zeros(HOST_N, np.float32)
+    buf = ctx.create_buffer(HOST_N, "float32", device=cuda_dev)
+    scale.set_args(x=buf, s=2.0)
+    offset.set_args(x=buf, o=1.0)
+    q = ctx.create_queue(cuda_dev, out_of_order=True)
+    reset_counts()
+    e_w = q.enqueue_write_buffer(buf, host)
+    e_s = q.enqueue_nd_range(scale, (HOST_N,), (HOST_LSZ,), wait_for=[e_w])
+    e_o = q.enqueue_nd_range(offset, (HOST_N,), (HOST_LSZ,), wait_for=[e_s])
+    e_r = q.enqueue_read_buffer(buf, out, wait_for=[e_o])
+    q.finish()
+    walk = {n: k.bind(cuda_dev, (HOST_LSZ,)).prog.launches
+            for n, k in (("scale", scale), ("offset", offset))}
+    assert walk == {"scale": 1, "offset": 1}, walk
+    assert buf.data.is_cuda and q.stats["launches"] == 2
+    expect = host * np.float32(2.0) + np.float32(1.0)
+    assert out.tobytes() == expect.tobytes(), "walk-through result"
+    evs = (e_w, e_s, e_o, e_r)
+    for ev in evs:
+        p = ev.profile
+        assert p["queued_ns"] <= p["submit_ns"] <= p["start_ns"] \
+            <= p["end_ns"], (ev.name, p)
+    for a, b in zip(evs, evs[1:]):
+        assert a.end_ns <= b.start_ns, (a.name, b.name)
+    emit(13, part="walkthrough", work_items=HOST_N, local_size=HOST_LSZ,
+         device=cuda_dev.info.name, launches=walk, bitwise=True,
+         event_us={ev.name: (ev.end_ns - ev.start_ns) / 1e3 for ev in evs})
+    buf.release()
+
+    # -- (b) the chain at 16,384 x 576, fusion off and at flush -----------
+    rng = np.random.default_rng(13)
+    xh, wh, rh = (rng.standard_normal(CHAIN_N, dtype=np.float32)
+                  for _ in range(3))
+    inv_rms = float(np.float32(1.0 / np.sqrt(np.mean(xh.astype(np.float64)
+                                                      ** 2))))
+    want = chain_oracle(np, xh, wh, rh, inv_rms)
+    nbytes = CHAIN_N * 4
+    unfused = [chain_prog.create_kernel(n).bind(cuda_dev, (CHAIN_LSZ,)).prog
+               for n in CHAIN]
+    fused = fused_spec.program.binary_for(fused_spec.kernel_name,
+                                          (CHAIN_LSZ,), device=cuda_dev)
+
+    def run_chain(queue_dev, fusion):
+        """Fresh pooled buffers on the card, the inputs written, the
+        chain enqueued and ``q`` read back, on a new in-order queue."""
+        bufs = {n: ctx.create_buffer(CHAIN_N, device=cuda_dev)
+                for n in "xwryzq"}
+        queue = ctx.create_queue(queue_dev, fusion=fusion)
+        for n, h in zip("xwr", (xh, wh, rh)):
+            queue.enqueue_write_buffer(bufs[n], h)
+        kernels = chain_kernels(chain_prog, bufs, inv_rms)
+        for k in kernels:
+            queue.enqueue_nd_range(k, (CHAIN_N,), (CHAIN_LSZ,))
+        got = np.zeros(CHAIN_N, np.float32)
+        queue.enqueue_read_buffer(bufs["q"], got)
+        queue.finish()
+        return got, bufs, queue, kernels
+
+    reset_counts()
+    q_off, bufs_off, queue_off, kern_off = run_chain(cuda_dev, "off")
+    off_launches = [p.launches for p in unfused] + [fused.prog.launches]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(cuda_dev.torch_device)
+    reset_counts()
+    with ctx.trace() as tr:
+        q_on, bufs_on, queue_on, kern_on = run_chain(cuda_dev, "flush")
+    on_launches = [p.launches for p in unfused] + [fused.prog.launches]
+    grown = torch.cuda.memory_allocated(cuda_dev.torch_device) - mem0
+    q_vec, bufs_vec, _, _ = run_chain(vec_dev, "off")
+    assert off_launches == [1, 1, 1, 0], off_launches
+    assert on_launches == [0, 0, 0, 1], on_launches
+    stats = queue_on.dag_stats()
+    assert stats == {"mode": "flush", "fused_chains": 1,
+                     "commands_eliminated": 2,
+                     "bytes_elided": 2 * 2 * nbytes}, stats
+    assert queue_off.dag_stats()["fused_chains"] == 0
+    assert queue_on.stats["launches"] == 1
+    assert queue_off.stats["launches"] == 3
+    assert not bufs_on["y"].materialized and not bufs_on["z"].materialized
+    assert grown <= 4 * nbytes, ("y or z allocated", grown)
+    for name, got in (("unfused", q_off), ("vector", q_vec),
+                      ("numpy", want)):
+        assert q_on.tobytes() == got.tobytes(), ("fused vs", name)
+    for b in bufs_vec.values():
+        b.release()
+
+    def time_chain(queue, kernels):
+        for k in kernels:                       # warm-up chain
+            queue.enqueue_nd_range(k, (CHAIN_N,), (CHAIN_LSZ,))
+        queue.finish()
+        marks, walls = [], []
+        for _ in range(CHAIN_REPS):
+            flush.zero_()
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            t0 = time.perf_counter()
+            for k in kernels:
+                queue.enqueue_nd_range(k, (CHAIN_N,), (CHAIN_LSZ,))
+            queue.finish()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            e.record()
+            marks.append((s, e))
+        torch.cuda.synchronize()
+        dev_ms = sorted(s.elapsed_time(e) for s, e in marks)
+        return dev_ms[len(dev_ms) // 2], sorted(walls)[len(walls) // 2]
+
+    span_ms = {"off": [], "flush": []}
+    wall_ms = {"off": [], "flush": []}
+    for _ in range(CHAIN_ROUNDS):             # the modes take turns
+        for mode, queue, kernels in (("off", queue_off, kern_off),
+                                     ("flush", queue_on, kern_on)):
+            span, wall = time_chain(queue, kernels)
+            span_ms[mode].append(span)
+            wall_ms[mode].append(wall)
+    assert queue_on.dag_stats()["fused_chains"] \
+        == 1 + CHAIN_ROUNDS * (1 + CHAIN_REPS)
+    assert not bufs_on["y"].materialized and not bufs_on["z"].materialized
+    emit(13, part="chain", n=CHAIN_N, local_size=CHAIN_LSZ,
+         buffer_mb=nbytes / 1e6, bitwise=["unfused", "vector", "numpy"],
+         dag_stats=stats, launches={"off": off_launches[:3],
+                                    "flush": on_launches[3]},
+         y_z_materialized=False, memory_grown_mb=grown / 1e6,
+         stream_span_ms=span_ms, wall_ms=wall_ms,
+         bound_ms={"off": 8 * nbytes / PEAK_HBM_BYTES * 1e3,
+                   "flush": 4 * nbytes / PEAK_HBM_BYTES * 1e3})
+    for b in bufs_off.values():
+        b.release()
+    torch.cuda.empty_cache()
+
+    # -- (c) maps at that size --------------------------------------------
+    def map_ms(region):
+        return (region.event.end_ns - region.event.start_ns) / 1e6
+
+    def unmap_ms(region):
+        return (region.unmap_event.end_ns
+                - region.unmap_event.start_ns) / 1e6
+
+    read_maps = []                 # the second one's staging is cached
+    for _ in range(2):
+        read_map = queue_on.enqueue_map_buffer(bufs_on["q"], "r")
+        assert read_map.get().tobytes() == q_on.tobytes(), "read map"
+        queue_on.enqueue_unmap_buffer(read_map)
+        queue_on.finish()
+        read_maps.append(read_map)
+    lo, half = CHAIN_N // 4, CHAIN_N // 2
+    x_new = xh.copy()
+    x_new[lo:lo + half] = rng.standard_normal(half, dtype=np.float32)
+    mid = create_sub_buffer(bufs_on["x"], lo * 4, half * 4)
+    write_map = queue_on.enqueue_map_buffer(mid, "w")
+    write_map.get()[...] = x_new[lo:lo + half]
+    queue_on.enqueue_unmap_buffer(write_map)
+    for k in kern_on:
+        queue_on.enqueue_nd_range(k, (CHAIN_N,), (CHAIN_LSZ,))
+    q_new = np.zeros(CHAIN_N, np.float32)
+    queue_on.enqueue_read_buffer(bufs_on["q"], q_new)
+    queue_on.finish()
+    assert q_new.tobytes() == chain_oracle(np, x_new, wh, rh,
+                                           inv_rms).tobytes(), "after map"
+    held = queue_on.enqueue_map_buffer(bufs_on["x"], "r")
+    held.get()
+    refused = ctx.create_queue(cuda_dev, fusion="off")
+    bad = refused.enqueue_nd_range(kern_on[0], (CHAIN_N,), (CHAIN_LSZ,))
+    failed = threading.Event()
+    bad.add_callback(lambda ev: failed.set())
+    refused.flush()
+    assert failed.wait(60) and isinstance(bad.error, MapError), bad.error
+    queue_on.enqueue_unmap_buffer(held)
+    queue_on.finish()
+    pinned = torch.empty(CHAIN_N, pin_memory=True)
+    q_dev, x_mid = bufs_on["q"].data, mid.data
+    copy_ms = {
+        "d2h": time_ms(lambda: pinned.copy_(q_dev, non_blocking=True),
+                       reps=5, warmup=1),
+        "h2d_half": time_ms(lambda: x_mid.copy_(pinned[:half],
+                                                non_blocking=True),
+                            reps=5, warmup=1)}
+    del pinned, q_dev, x_mid
+    emit(13, part="maps", read_map_equal=True, write_map_then_chain=True,
+         launch_over_map="MapError",
+         ms={"map_r": map_ms(read_maps[0]), "unmap_r": unmap_ms(read_maps[0]),
+             "map_r_again": map_ms(read_maps[1]),
+             "unmap_r_again": unmap_ms(read_maps[1]),
+             "map_w_half": map_ms(write_map),
+             "unmap_w_half": unmap_ms(write_map)},
+         copy_ms=copy_ms, bytes={"map_r": nbytes, "map_w_half": half * 4})
+
+    # -- (d) the trace of (b)'s fused run ---------------------------------
+    events = tr.trace_events()
+    counts = validate_trace(events)
+    slices = sorted(e["name"] for e in events if e["ph"] == "X")
+    expect_slices = sorted(["write"] * 3 + [f"ndrange:{n}" for n in CHAIN]
+                           + ["fused:" + "+".join(CHAIN), "read"])
+    assert slices == expect_slices, slices
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    trace_path = BUILD_DIR / "phase13_trace.json"
+    tr.export(str(trace_path))
+    emit(13, part="trace", path=os.path.relpath(trace_path, ROOT),
+         counts=counts, slices=len(slices))
+
+    # -- the fused kernel alone, beside the vector target ---------------------
+    fb, fs = fused_spec.bind_launch(
+        [{"x": bufs_on["x"], "w": bufs_on["w"], "y": bufs_on["y"]},
+         {"y": bufs_on["y"], "r": bufs_on["r"], "z": bufs_on["z"]},
+         {"z": bufs_on["z"], "q": bufs_on["q"]}],
+        [{"inv_rms": inv_rms}, {}, {"scale": CHAIN_SCALE}])
+    dbufs = {n: b.data for n, b in fb.items()}
+    pbufs = {n: t.clone() for n, t in dbufs.items()}
+    plain = fused_spec.program.binary_for(fused_spec.kernel_name,
+                                          (CHAIN_LSZ,), device=vec_dev)
+    fused.launch_ndrange(dbufs, (CHAIN_N,), fs)
+    plain.launch_ndrange(pbufs, (CHAIN_N,), fs)
+    err = float((dbufs["k2_q"] - pbufs["k2_q"]).abs().max())
+    assert err == 0.0, ("fused chain", "cuda vs vector", err)
+    ms = time_ms(lambda: fused.launch_ndrange(dbufs, (CHAIN_N,), fs))
+    plain_ms = time_ms(lambda: plain.launch_ndrange(pbufs, (CHAIN_N,), fs),
+                       reps=3, warmup=1)
+    bms, by = bound(8.0 * CHAIN_N, 4 * nbytes)
+
+    # -- the three unfused kernels on the same inputs, each and in turn -------
+    ut = {n: bufs_on[n].data for n in "xwr"}
+    ut.update({n: torch.empty_like(ut["x"]) for n in "yzq"})
+    ubins = [chain_prog.create_kernel(n).bind(cuda_dev, (CHAIN_LSZ,))
+             for n in CHAIN]
+    calls = [(ubins[0], {n: ut[n] for n in "xwy"}, {"inv_rms": inv_rms}),
+             (ubins[1], {n: ut[n] for n in "yrz"}, {}),
+             (ubins[2], {n: ut[n] for n in "zq"}, {"scale": CHAIN_SCALE})]
+
+    def unfused_chain():
+        for b, bufs, sc in calls:
+            b.launch_ndrange(bufs, (CHAIN_N,), sc)
+
+    unfused_chain()
+    assert torch.equal(ut["q"], dbufs["k2_q"]), "unfused vs fused kernels"
+    kernel_ms = {
+        "flush": ms,
+        "off": time_ms(unfused_chain),
+        "off_each": {n: time_ms(lambda b=b, bufs=bufs, sc=sc:
+                                b.launch_ndrange(bufs, (CHAIN_N,), sc))
+                     for n, (b, bufs, sc) in zip(CHAIN, calls)}}
+    emit(13, part="kernels", kernel_ms=kernel_ms,
+         host_ms_a_command={
+             "off": [(t - kernel_ms["off"]) / len(CHAIN)
+                     for t in span_ms["off"]],
+             "flush": [t - ms for t in span_ms["flush"]]})
+    del ut, calls
+    assert not bufs_on["y"].materialized and not bufs_on["z"].materialized
+    for b in bufs_on.values():
+        b.release()
+    del dbufs, pbufs
+    torch.cuda.empty_cache()
+    return {"name": "cuda_target/fused_chain", "launches": on_launches[3],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1124,6 +1490,8 @@ def main() -> int:
     import numpy as np
     from repro_torch.core import KernelBuilder
     from repro_torch.core.cases import CASES, build_dot_product, builder
+    from repro_torch.core.examples import (build_quantize, build_residual_add,
+                                           build_rmsnorm_ew)
     from repro_torch.core.interp import run_ndrange
     from repro_torch.core.nvcc import build_parallel
     from repro_torch.kernels import KERNELS
@@ -1156,12 +1524,23 @@ def main() -> int:
     real_runs = [(name, SUITE[name], shape, params,
                   ctx.create_program(SUITE[name].build(shape, params)))
                  for name, shape, params in REAL]
+    host_prog = ctx.create_program(build_scale, build_offset).build()
+    chain_prog = ctx.create_program(build_rmsnorm_ew, build_residual_add,
+                                    build_quantize).build()
+    warm_queue, warm_bufs, fused_spec = warm_fused_chain(ctx, cuda_dev,
+                                                         chain_prog)
     binaries = [dot_prog.create_kernel().bind(cuda_dev, (QS_LSZ,))]
     binaries += [r[3].create_kernel().bind(cuda_dev, r[6]) for r in case_runs]
     for runs in (full_runs, real_runs):
         for name, sk, shape, params, prog in runs:
             binaries.append(prog.create_kernel().bind(
                 cuda_dev, sk.launch_dims(shape, params)[1]))
+    binaries += [host_prog.create_kernel(n).bind(cuda_dev, (HOST_LSZ,))
+                 for n in ("scale", "offset")]
+    binaries += [chain_prog.create_kernel(n).bind(cuda_dev, (CHAIN_LSZ,))
+                 for n in CHAIN]
+    binaries.append(fused_spec.program.binary_for(
+        fused_spec.kernel_name, (CHAIN_LSZ,), device=cuda_dev))
     progs = {b.prog.digest: b.prog for b in binaries}
     t0 = time.perf_counter()
     secs = build_parallel([p.nvcc_job() for p in progs.values()]
@@ -1176,6 +1555,10 @@ def main() -> int:
          nvcc_s={**{f"{p.wg.fn.name}@{p.lsz[:p.wg.fn.ndim]}":
                     secs.get(p.nvcc_job().out) for p in progs.values()},
                  **{k.name: secs.get(k.lib_path) for k in KERNELS}})
+    warm_queue.finish()
+    assert warm_queue.dag_stats()["fused_chains"] == 1
+    for b in warm_bufs.values():
+        b.release()
 
     def reset_counts():
         for p in progs.values():
@@ -1386,8 +1769,16 @@ def main() -> int:
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"]})
+    torch.cuda.empty_cache()
 
-    # -- 13. kernels line, card, result --------------------------------------------
+    # -- 13. the host runtime (main path) --------------------------------------------
+    t13 = time.perf_counter()
+    entries.append(host_runtime_phase(torch, np, time_ms, flush, ctx,
+                                      cuda_dev, vec_dev, host_prog,
+                                      chain_prog, fused_spec, reset_counts))
+    emit(13, part="done", seconds=time.perf_counter() - t13)
+
+    # -- 14. kernels line, card, result --------------------------------------------
     print(json.dumps({"kernels": [
         {"name": e["name"], "route": "cuda",
          "source": e.get("source", KERNEL_SOURCE),

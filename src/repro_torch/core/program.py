@@ -18,7 +18,8 @@ launches.
   semantics: positional or named binding, validated against the IR
   signature (buffer vs. scalar, dtype; LOCAL args are materialized by the
   work-group function and not settable), and a cheap :meth:`Kernel.clone`.
-  Buffer arguments are numpy arrays or torch tensors.
+  Buffer arguments are numpy arrays or torch tensors (``Context.launch``)
+  or device-resident buffers (``CommandQueue.enqueue_nd_range``).
 """
 
 from __future__ import annotations
@@ -39,9 +40,15 @@ from .passes import VerifierError, build_plan
 
 def _classify(value) -> str:
     """Host-API argument class of ``value``: ``"host"`` (an array or
-    tensor) or ``"scalar"``."""
+    tensor), ``"device"`` (Buffer/SubBuffer view) or ``"scalar"``.
+    Duck-typed so the core layer never imports the runtime layer."""
     if isinstance(value, (np.ndarray, torch.Tensor)) and value.ndim > 0:
         return "host"
+    # probe `origin`, not `data`: hasattr(value, "data") would invoke the
+    # property getter, materializing a still-lazy pooled buffer and
+    # defeating fusion's intermediate elision
+    if hasattr(value, "root") and hasattr(value, "origin"):
+        return "device"
     return "scalar"
 
 
@@ -53,6 +60,8 @@ _NP_OF_TORCH = {torch.float32: np.dtype("float32"),
 
 
 def _buffer_dtype(value) -> np.dtype:
+    """The numpy dtype of a buffer-class argument (an array, a tensor or
+    a device buffer, whose ``dtype`` may be any numpy spelling)."""
     if isinstance(value, torch.Tensor):
         try:
             return _NP_OF_TORCH[value.dtype]
@@ -116,6 +125,17 @@ class Program:
         """The *unmutated* signature IR of kernel ``name``."""
         try:
             return self._fns[name]
+        except KeyError:
+            raise InvalidArgError(
+                f"no kernel {name!r} in program; have "
+                f"{self.kernel_names()}") from None
+
+    def builder(self, name: str) -> Callable[[], Function]:
+        """The zero-argument IR builder of kernel ``name`` — the source
+        the queue's fusion rewrite re-stitches chains from
+        (:mod:`repro_torch.core.fusion`)."""
+        try:
+            return self._builders[name]
         except KeyError:
             raise InvalidArgError(
                 f"no kernel {name!r} in program; have "
@@ -371,16 +391,30 @@ class Kernel:
     def missing_args(self) -> List[str]:
         return [n for n in self._order if n not in self._args]
 
-    def launch_args(self) -> Tuple[Dict[str, object], Dict[str, object]]:
-        """The bound ``(buffers, scalars)`` dicts for a launch; raises
-        :class:`~repro_torch.core.errors.InvalidArgError`
-        (CL_INVALID_KERNEL_ARGS) when arguments are unset."""
+    def launch_args(self, accept: Sequence[str] = ("host", "device")
+                    ) -> Tuple[Dict[str, object], Dict[str, object]]:
+        """The bound ``(buffers, scalars)`` dicts for a launch.
+
+        Raises :class:`~repro_torch.core.errors.InvalidArgError`
+        (CL_INVALID_KERNEL_ARGS) when arguments are unset, or when a
+        buffer argument's class is outside ``accept`` — e.g. a
+        device-bound Buffer handed to ``Context.launch``, which takes
+        arrays and tensors."""
         missing = self.missing_args()
         if missing:
             raise InvalidArgError(
                 f"kernel {self.name!r} launched with unset arguments "
                 f"{missing} (CL_INVALID_KERNEL_ARGS)")
-        buffers = {a.name: self._args[a.name] for a in self._buffer_args}
+        buffers: Dict[str, object] = {}
+        for a in self._buffer_args:
+            v = self._args[a.name]
+            kind = _classify(v)
+            if kind not in accept:
+                raise InvalidArgError(
+                    f"kernel {self.name!r} argument {a.name!r} is a "
+                    f"{kind} buffer; this launch path accepts "
+                    f"{tuple(accept)}")
+            buffers[a.name] = v
         scalars = {a.name: self._args[a.name] for a in self._scalar_args}
         return buffers, scalars
 

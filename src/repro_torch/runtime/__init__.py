@@ -1,16 +1,37 @@
-"""repro_torch.runtime — the OpenCL-shaped host layer over torch devices:
-Platform / Device / Context, the native-command DAG queue and its events,
-and the bufalloc arena with its size-class pool (trimmed: buffers,
-map/unmap, co-execution and tracing are not ported yet)."""
+"""repro_torch.runtime — the OpenCL-shaped host layer over torch devices
+(paper §3): Platform / Device / Context, device-resident buffers and
+sub-buffers, map/unmap through a host bounce, the event-DAG command queue
+with buffer and kernel enqueues and DAG fusion, the bufalloc arena with
+its size-class pool, and the Chrome-trace export.  Multi-device
+co-execution (``runtime/scheduler.py``) is not ported yet."""
 
-from .bufalloc import Bufalloc, OutOfMemory
+from ..core.errors import (BuildError, InvalidArgError, InvalidBufferError,
+                           ReproError, status_name)
+from ..core.program import Kernel, Program
+from .bufalloc import Bufalloc, OutOfMemory, ResidencyTracker
 from .context import Context, default_context
-from .events import CommandError, DependencyError, Event, UserEvent
-from .memory import BufferPool
-from .platform import Device, DeviceInfo, DeviceNotFoundError, Platform
+from .events import (CommandError, DependencyError, Event, EventStatus,
+                     UserEvent, chunk_counters, wait_for_events)
+from .memory import (MAP_READ, MAP_READ_WRITE, MAP_WRITE,
+                     MAP_WRITE_INVALIDATE, BufferPool, MapError,
+                     MappedRegion, SubBuffer, create_sub_buffer)
+from .platform import (Buffer, Device, DeviceInfo, DeviceNotFoundError,
+                       Platform, create_buffer, default_platform)
 from .queue import CommandQueue
+from .trace import ChromeTrace, validate_trace
 
-__all__ = ["Bufalloc", "BufferPool", "CommandError", "CommandQueue",
-           "Context", "DependencyError", "Device", "DeviceInfo",
-           "DeviceNotFoundError", "Event", "OutOfMemory", "Platform",
-           "UserEvent", "default_context"]
+__all__ = [
+    "Context", "default_context", "Program", "Kernel",
+    "ReproError", "InvalidArgError", "InvalidBufferError", "BuildError",
+    "status_name",
+    "Bufalloc", "OutOfMemory", "ResidencyTracker",
+    "Event", "EventStatus", "UserEvent", "CommandError", "DependencyError",
+    "wait_for_events", "chunk_counters",
+    "Platform", "Device", "DeviceInfo", "DeviceNotFoundError", "Buffer",
+    "create_buffer", "default_platform",
+    "CommandQueue",
+    "MapError", "MappedRegion", "SubBuffer", "create_sub_buffer",
+    "BufferPool", "MAP_READ", "MAP_WRITE", "MAP_READ_WRITE",
+    "MAP_WRITE_INVALIDATE",
+    "ChromeTrace", "validate_trace",
+]

@@ -1,47 +1,56 @@
 """First-class Context host object (OpenCL §4.4).
 
-The trimmed port of ``repro.runtime.context``.  A :class:`Context` owns a
-set of :class:`~repro_torch.runtime.platform.Device`\\ s and the
-**shared** compilation/plan cache tier every program created in it
-specializes through, so devices compiling the same kernel share one
-region-formation run::
+The port of ``repro.runtime.context``.  A :class:`Context` owns a set of
+:class:`~repro_torch.runtime.platform.Device`\\ s, the **shared**
+compilation/plan cache tier every program created in it specializes
+through (so devices compiling the same kernel share one region-formation
+run), and a size-class :class:`~repro_torch.runtime.memory.BufferPool`
+per device.  The flow mirrors OpenCL end to end::
 
     ctx  = Context()                                   # clCreateContext
     prog = ctx.create_program(build_fn).build()        # clBuildProgram
     k    = prog.create_kernel("scale")                 # clCreateKernel
-    k.set_args(x=x, s=2.0)                             # clSetKernelArg
-    out  = ctx.launch(k, (1024,), (64,))               # NDRange launch
+    buf  = ctx.create_buffer(1024, "float32")          # clCreateBuffer
+    k.set_args(x=buf, s=2.0)                           # clSetKernelArg
+    q    = ctx.create_queue(out_of_order=True)         # clCreateCommandQueue
+    q.enqueue_nd_range(k, (1024,), (64,))              # clEnqueueNDRangeKernel
+    q.finish()                                         # clFinish
 
-:meth:`Context.launch` accepts numpy arrays or tensors, copies them onto
-the device (the caller's arrays stay untouched, as in the functional
-reference) and returns the buffers as tensors on the device.
-
-The context also hands out command queues (:meth:`Context.create_queue`)
-and per-device size-class buffer pools (:meth:`Context.pool_for`): the
-serving engine's dispatch DAG and KV page pool.
+Buffers live in device memory and kernels launch in place on them
+(:mod:`repro_torch.runtime.queue`).  :meth:`Context.launch` is the
+direct path for kernels bound to host arrays: it accepts numpy arrays or
+tensors, copies them onto the device (the caller's arrays stay untouched,
+as in the functional reference) and returns the buffers as tensors on the
+device.  :meth:`Context.trace` records the context's queues as a Chrome
+trace.  The serving engine takes its dispatch DAG and KV page pool from
+a context too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Callable, Dict, List, Optional, Sequence
+import weakref
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import torch
 
 from ..core.cache import CompilationCache
-from ..core.errors import (BuildError, InvalidArgError, ReproError,
-                           status_name)
+from ..core.errors import (BuildError, InvalidArgError, InvalidBufferError,
+                           MapError, ReproError, status_name)
 from ..core.ir import Function
 from ..core.program import Kernel, Program
 from .memory import BufferPool
-from .platform import Device, Platform
+from .platform import Buffer, Device, Platform, create_buffer
 from .queue import CommandQueue
+from .trace import ChromeTrace
 
 __all__ = [
     "Context", "default_context",
     # the status hierarchy a context's operations raise, re-exported so
     # host code can catch without reaching into repro_torch.core
-    "ReproError", "InvalidArgError", "BuildError", "status_name",
+    "ReproError", "InvalidArgError", "InvalidBufferError", "BuildError",
+    "MapError", "status_name",
 ]
 
 
@@ -67,6 +76,13 @@ class Context:
         # specific min_class (the serving engine's KV blocks) gets its
         # own free lists and stats
         self._pools: Dict[tuple, BufferPool] = {}
+        # queues are tracked weakly: release() drains the live ones, but
+        # the context (often the immortal default_context) must never
+        # pin a dropped queue's worker threads against GC
+        self._queues: "weakref.WeakSet[CommandQueue]" = weakref.WeakSet()
+        # active ChromeTrace while inside a `with ctx.trace()` window:
+        # queues created during the window attach themselves on creation
+        self._trace: Optional[ChromeTrace] = None
         self._lock = threading.Lock()
 
     def _check_device(self, device: Optional[Device], what: str) -> Device:
@@ -101,13 +117,72 @@ class Context:
                 self._pools[(device, mc)] = pool
             return pool
 
+    def create_buffer(self, n_elems: int, dtype: str = "float32",
+                      device: Optional[Device] = None,
+                      pooled: bool = True) -> Buffer:
+        """clCreateBuffer with typed validation: rejects zero/negative
+        element counts and unknown dtypes with
+        :class:`~repro_torch.core.errors.InvalidBufferError` before the
+        arena is touched.  ``pooled=True`` (default) serves the chunk
+        from the context's per-device size-class pool, and the
+        allocation is *lazy*: the chunk and the device tensor
+        materialize on first real use, so an intermediate elided by the
+        queue's fusion rewrite never allocates."""
+        device = self._check_device(device, "create_buffer")
+        return create_buffer(device, n_elems, dtype,
+                             pool=self.pool_for(device) if pooled
+                             else None,
+                             lazy=pooled)
+
     def create_queue(self, device: Optional[Device] = None,
                      out_of_order: bool = False, workers: int = 2,
                      fusion: str = "flush") -> CommandQueue:
-        """clCreateCommandQueue on a context device."""
+        """clCreateCommandQueue on a context device.  ``fusion`` sets the
+        queue's DAG-fusion mode (``"off"`` | ``"flush"`` | ``"eager"``)."""
         device = self._check_device(device, "create_queue")
-        return CommandQueue(device, out_of_order=out_of_order,
-                            workers=workers, fusion=fusion)
+        q = CommandQueue(device, out_of_order=out_of_order,
+                         workers=workers, fusion=fusion)
+        with self._lock:
+            self._queues.add(q)
+            tr = self._trace
+        if tr is not None:
+            tr.attach_queue(q)
+        return q
+
+    @contextlib.contextmanager
+    def trace(self, tr: Optional[ChromeTrace] = None) \
+            -> Iterator[ChromeTrace]:
+        """Record every command on this context's queues as a Chrome
+        trace::
+
+            with ctx.trace() as tr:
+                q.enqueue_nd_range(k, (1024,), (64,))
+                q.finish()
+            tr.export("out.json")       # load in chrome://tracing
+
+        Existing queues and queues created inside the window are both
+        attached; on exit collection stops but the recorded events stay
+        on ``tr`` for export.  Pass a :class:`ChromeTrace` to accumulate
+        several windows into one file."""
+        tr = tr or ChromeTrace()
+        with self._lock:
+            self._trace = tr
+            queues = list(self._queues)
+        for q in queues:
+            tr.attach_queue(q)
+        try:
+            yield tr
+        finally:
+            with self._lock:
+                self._trace = None
+            tr.detach_all()
+
+    def create_co_executor(self, *args, **kwargs):
+        """Multi-device co-execution is not ported yet: it comes with
+        ``runtime/scheduler.py`` (ROADMAP A item 2)."""
+        raise InvalidArgError(
+            "Context.create_co_executor: co-execution is not ported to "
+            "repro_torch yet (ROADMAP A item 2: runtime/scheduler.py)")
 
     def pool_stats(self) -> Dict[str, Dict[str, int]]:
         """Counters per pool, keyed ``"<device>[:<min_class>]"`` (the
@@ -124,14 +199,16 @@ class Context:
                local_size: Sequence[int],
                device: Optional[Device] = None,
                target: Optional[str] = None) -> Dict[str, torch.Tensor]:
-        """Synchronous-looking single-device launch: specializes
-        ``kernel`` for ``(device, local_size, target)`` through the device
-        cache, runs it over device copies of the bound buffers, and
-        returns them as tensors on the device.  (A ``cuda`` launch is
-        asynchronous: the tensors are ready once the stream reaches
-        them.)"""
+        """Synchronous-looking single-device launch over *host-array*
+        arguments: specializes ``kernel`` for ``(device, local_size,
+        target)`` through the device cache, runs it over device copies of
+        the bound arrays or tensors, and returns them as tensors on the
+        device.  (A ``cuda`` launch is asynchronous: the tensors are
+        ready once the stream reaches them.)  Device-resident
+        :class:`Buffer` arguments belong on a queue
+        (``create_queue().enqueue_nd_range``)."""
         device = self._check_device(device, "launch")
-        buffers, scalars = kernel.launch_args()
+        buffers, scalars = kernel.launch_args(accept=("host",))
         binary = kernel.bind(device, local_size, target=target)
         return binary(buffers, tuple(global_size), scalars,
                       device=device.torch_device)
@@ -142,6 +219,25 @@ class Context:
         for d in self.devices:
             stats[d.info.name] = d.cache_stats()
         return stats
+
+    def release(self, timeout: Optional[float] = 30.0) -> None:
+        """clReleaseContext analogue for the resources the context
+        parks: drain and drop every queue created through
+        :meth:`create_queue` (command failures are not re-raised here —
+        read them off the events before releasing if they matter), and
+        trim every pool back to its arena.  Buffers the caller still
+        holds stay valid."""
+        with self._lock:
+            queues = list(self._queues)
+            self._queues = weakref.WeakSet()
+            pools = list(self._pools.values())
+        for q in queues:
+            try:
+                q.finish(timeout=timeout)
+            except Exception:
+                pass  # failed/stuck commands must not block release
+        for p in pools:
+            p.trim()
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return (f"<Context devices="

@@ -1,7 +1,7 @@
-"""OpenCL-shaped host layer: Platform / Device (paper §3, Fig. 2).
+"""OpenCL-shaped host layer: Platform / Device / Buffer (paper §3, Fig. 2).
 
-The trimmed port of ``repro.runtime.platform``.  Device-specific behaviour
-lives behind the device-layer interface, mirroring pocl's driver split:
+The port of ``repro.runtime.platform``.  Device-specific behaviour lives
+behind the device-layer interface, mirroring pocl's device kinds:
 
   ``cuda``    — the H100: CUDA C work-group functions (cuda target)
   ``vector``  — vectorized work-groups in torch (vector target)
@@ -18,23 +18,32 @@ Device queries (global memory size, max work-group size, …) come from
 ``torch.cuda.get_device_properties`` for a CUDA device.  Every device
 owns a :class:`~repro_torch.core.cache.CompilationCache` and an
 ``allocator``, a :class:`~repro_torch.runtime.bufalloc.Bufalloc` arena
-over its global memory size (the book-keeping the serving engine pages
-its KV cache from).
+over its global memory size: the book-keeping of its buffers (and of the
+serving engine's KV pages).
+
+A :class:`Buffer` (``cl_mem``) lives in its device's memory: its payload
+is a flat 1-D tensor on ``device.torch_device``, not a host mirror, and
+kernel launches update it in place.  Pooled context buffers are lazy:
+neither the arena chunk nor the tensor exists before first real use.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import threading
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from ..core.api import CompiledKernel, _compile_kernel
 from ..core.cache import CompilationCache
-from ..core.errors import InvalidArgError, ReproError, register_error
+from ..core.errors import (InvalidArgError, InvalidBufferError, ReproError,
+                           register_error)
 from ..core.ir import Function
-from .bufalloc import Bufalloc
+from .bufalloc import Bufalloc, Chunk
 
 
 @register_error
@@ -91,6 +100,18 @@ class Device:
                 f"target 'cuda' needs a CUDA device; device "
                 f"{self.info.name!r} is on {self.torch_device}")
         return _compile_kernel(build, local_size, **opts)
+
+    def build_kernel(self, build: Callable[[], Function],
+                     local_size: Sequence[int], **opts) -> CompiledKernel:
+        """Deprecated host entry point (clBuildProgram + clCreateKernel in
+        one call).  Use ``Context.create_program(build)`` and specialize
+        through :class:`~repro_torch.core.program.Kernel` objects instead;
+        this shim delegates to the same device-cache compilation."""
+        warnings.warn(
+            "Device.build_kernel() is deprecated; use Context."
+            "create_program(build).create_kernel(name) and enqueue the "
+            "Kernel object", DeprecationWarning, stacklevel=2)
+        return self.compile(build, local_size, **opts)
 
     def cache_stats(self) -> Dict[str, int]:
         """Compilation-cache counters for this device."""
@@ -166,4 +187,226 @@ class Platform:
         return {d.info.name: d.cache_stats() for d in self.devices}
 
 
-__all__ = ["Device", "DeviceInfo", "DeviceNotFoundError", "Platform"]
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype holding a buffer of numpy dtype ``dtype``."""
+    return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+
+
+def copy_into(dst: torch.Tensor, value, dtype) -> None:
+    """Copy ``value`` (an array or tensor, any shape, ``dst.numel()``
+    elements) into the flat tensor ``dst`` in place, converting it to
+    ``dtype`` as ``np.asarray(value, dtype)`` would."""
+    if isinstance(value, torch.Tensor):
+        src = value.reshape(-1)
+    else:
+        src = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(value, dtype=dtype)).reshape(-1))
+    if src.numel() != dst.numel():
+        raise InvalidBufferError(
+            f"cannot copy {src.numel()} elements into a buffer span of "
+            f"{dst.numel()}")
+    dst.copy_(src)
+
+
+class Buffer:
+    """A device buffer (cl_mem analogue) backed by a Bufalloc chunk plus
+    its payload: a flat tensor of ``n_elems`` on ``device.torch_device``,
+    which kernel launches update in place.
+
+    The hierarchical-memory subsystem (:mod:`repro_torch.runtime.memory`)
+    extends every buffer with
+
+    * **view bookkeeping** — :attr:`origin`/:attr:`root` let sub-buffer
+      views and the root share one identity for residency and mapping;
+    * **residency binding** — :meth:`bind_residency` attaches a
+      :class:`~repro_torch.runtime.bufalloc.ResidencyTracker`, after
+      which any write through the buffer *or any aliased view of it*
+      invalidates the overlapping span of every other device's copy;
+    * **map bookkeeping** — active :class:`~repro_torch.runtime.memory.
+      MappedRegion`\\ s are registered on the root so overlapping write
+      maps (and kernel launches over mapped buffers) are rejected.
+    """
+
+    def __init__(self, device: Device, size_bytes: int, dtype: str,
+                 n_elems: int, pool=None, lazy: bool = False):
+        self.device = device
+        # a pool-backed buffer draws its chunk from (and releases it to)
+        # a size-class BufferPool over the device arena instead of the
+        # raw first-fit allocator (Context.create_buffer does this)
+        self._pool = pool
+        self._size_bytes = size_bytes
+        self.dtype = np.dtype(dtype).name
+        self.itemsize = np.dtype(dtype).itemsize
+        self.n_elems = n_elems
+        self.nbytes = n_elems * self.itemsize
+        self.origin = 0                       # byte offset within root
+        # a lazy buffer defers both the chunk and the tensor until first
+        # real use, so a fusion-elided intermediate that is only ever the
+        # stitched-away link of a chain never touches device memory; the
+        # lock keeps two workers' first uses from making two tensors
+        self.chunk: Optional[Chunk] = None
+        self._data: Optional[torch.Tensor] = None
+        self._alloc_lock = threading.Lock()
+        if not lazy:
+            self._materialize()
+        # residency binding (None until bind_residency)
+        self._tracker = None
+        self._res_key = None
+        self._res_dev = None
+        # map bookkeeping (root buffers only)
+        self._maps: List[object] = []         # active MappedRegions
+        self._map_lock = threading.Lock()
+        # optional read-back hook run by READ maps before their copy to
+        # the host (e.g. pull the canonical copy of a shared buffer);
+        # MAP_WRITE_INVALIDATE skips it, and the copy with it
+        self.on_map_sync: Optional[Callable[[int, int], None]] = None
+
+    @property
+    def root(self) -> "Buffer":
+        """The underlying root allocation (self for non-view buffers)."""
+        return self
+
+    # -- lazy materialization ---------------------------------------------------
+    @property
+    def materialized(self) -> bool:
+        """True once the device chunk and tensor exist.  Lazy buffers
+        (``Context.create_buffer(pooled=True)``) stay unmaterialized
+        until the first real use; an elided fusion intermediate is
+        *never* real use, so its ``bytes_elided`` are genuinely saved."""
+        return self._data is not None
+
+    def _materialize(self) -> None:
+        if self._data is not None:
+            return
+        with self._alloc_lock:
+            if self._data is not None:
+                return
+            if self.chunk is None:
+                self.chunk = (self._pool.alloc(self._size_bytes)
+                              if self._pool is not None
+                              else self.device.allocator.alloc(
+                                  self._size_bytes))
+            self._data = torch.zeros(self.n_elems,
+                                     dtype=_torch_dtype(self.dtype),
+                                     device=self.device.torch_device)
+
+    @property
+    def data(self) -> torch.Tensor:
+        """The payload tensor on the device; touching it is 'first real
+        use' and materializes a lazy buffer."""
+        self._materialize()
+        return self._data
+
+    @data.setter
+    def data(self, value) -> None:
+        """Write ``value`` (an array or tensor of ``n_elems`` elements)
+        into the payload in place."""
+        copy_into(self.data, value, self.dtype)
+
+    # -- residency ------------------------------------------------------------
+    def bind_residency(self, tracker, key, device_key) -> None:
+        """Attach a ResidencyTracker: from now on every write through
+        this buffer or any of its views calls ``tracker.wrote_span`` for
+        exactly the written byte span, invalidating other device copies
+        at sub-buffer granularity."""
+        self._tracker = tracker
+        self._res_key = key
+        self._res_dev = device_key
+
+    def mark_written_span(self, lo: int, hi: int) -> None:
+        """Record that bytes ``[lo, hi)`` (buffer-relative) were written
+        on this buffer's device."""
+        if self._tracker is not None:
+            self._tracker.wrote_span(self._res_key, self._res_dev,
+                                     self.origin + lo, self.origin + hi)
+
+    def mark_written(self) -> None:
+        self.mark_written_span(0, self.nbytes)
+
+    # -- map bookkeeping (queried by CommandQueue._launch) ----------------------
+    @property
+    def map_count(self) -> int:
+        """Number of active mapped regions over the *root* allocation."""
+        with self.root._map_lock:
+            return len(self.root._maps)
+
+    def release(self) -> None:
+        """clReleaseMemObject: the chunk goes back to its pool or arena
+        and the tensor to torch's allocator."""
+        with self._alloc_lock:
+            if self.chunk is not None:
+                if self._pool is not None:
+                    self._pool.free(self.chunk)
+                else:
+                    self.device.allocator.free(self.chunk)
+                self.chunk = None
+            self._data = None
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        # never touches the payload: a repr must not materialize
+        return (f"<Buffer {self.n_elems} x {self.dtype} on "
+                f"{self.device.info.name}"
+                f"{'' if self.materialized else ' (lazy)'}>")
+
+
+def validate_buffer_request(n_elems, dtype) -> int:
+    """Validate a buffer-creation request; returns the element size.
+
+    Raises :class:`~repro_torch.core.errors.InvalidBufferError`
+    (CL_INVALID_BUFFER_SIZE) for a zero/negative/non-integral element
+    count or a dtype that is unknown or that torch cannot hold —
+    *before* the request reaches the Bufalloc arena."""
+    if isinstance(n_elems, bool) or not isinstance(
+            n_elems, (int, np.integer)):
+        raise InvalidBufferError(
+            f"buffer element count must be an integer, got "
+            f"{type(n_elems).__name__} ({n_elems!r})")
+    if n_elems <= 0:
+        raise InvalidBufferError(
+            f"buffer element count must be positive, got {n_elems}")
+    try:
+        itemsize = np.dtype(dtype).itemsize
+        _torch_dtype(dtype)
+    except TypeError as e:
+        raise InvalidBufferError(
+            f"unknown buffer dtype {dtype!r}: {e}") from None
+    return itemsize
+
+
+def create_buffer(device: Device, n_elems: int, dtype: str = "float32",
+                  pool=None, lazy: bool = False) -> Buffer:
+    """clCreateBuffer: allocate ``n_elems`` of ``dtype`` on ``device``.
+    ``pool`` (a :class:`~repro_torch.runtime.memory.BufferPool` over the
+    device's arena) serves the chunk from a size-class free list —
+    ``Context.create_buffer`` passes the context's per-device pool.
+    ``lazy=True`` defers chunk + tensor to first real use (pooled
+    context buffers default to this, enabling fusion elision)."""
+    itemsize = validate_buffer_request(n_elems, dtype)
+    return Buffer(device, int(n_elems) * itemsize, dtype, int(n_elems),
+                  pool=pool, lazy=lazy)
+
+
+# ---------------------------------------------------------------------------
+# Process-default platform (lazy singleton)
+# ---------------------------------------------------------------------------
+
+_default_platform: Optional[Platform] = None
+_platform_lock = threading.Lock()
+
+
+def default_platform() -> Platform:
+    """The process-default :class:`Platform` (clGetPlatformIDs returns the
+    same platform object for every caller): ``Platform()``, the CUDA
+    devices, raising :class:`DeviceNotFoundError` without one."""
+    global _default_platform
+    with _platform_lock:
+        if _default_platform is None:
+            _default_platform = Platform()
+        return _default_platform
+
+
+__all__ = ["Buffer", "Device", "DeviceInfo", "DeviceNotFoundError",
+           "Platform", "copy_into", "create_buffer", "default_platform",
+           "validate_buffer_request"]

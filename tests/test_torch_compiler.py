@@ -41,7 +41,8 @@ GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 COPIES = ["core/errors.py", "core/ir.py", "core/dsl.py", "core/regions.py",
           "core/uniformity.py", "core/horizontal.py", "core/context.py",
           "core/passes.py", "core/cache.py", "core/interp.py",
-          "core/examples.py", "suite/kernels.py", "suite/oracles.py"]
+          "core/examples.py", "core/fusion.py", "suite/kernels.py",
+          "suite/oracles.py", "runtime/trace.py"]
 
 
 def pipeline_trace(build_fn, canon, pm_cls, **opts) -> str:

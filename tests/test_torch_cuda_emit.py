@@ -8,7 +8,9 @@ Every compiler case (both horizontal settings), every suite kernel at its
 ``ci`` shape in every configuration, and the kernels below that give the
 mapping's other choices work (256-work-item and 2-D groups, a loop with
 a barrier in both schedules, a race across an implicit barrier, LOCAL
-accesses with and without proven bounds) are held bitwise against the
+accesses with and without proven bounds), and the rmsnorm -> residual ->
+quantize chain as the queue's fusion rewrite stitches it, are held
+bitwise against the
 port's ``vector`` target on the same inputs: the arithmetic is IEEE single precision with no contraction on
 both sides (``-ffp-contract=off``, as ``-fmad=false`` on the card).  A
 barrier deleted from the source must fail the same check.
@@ -30,7 +32,9 @@ import torch
 from repro_torch.core import KernelBuilder
 from repro_torch.core.api import _compile_kernel
 from repro_torch.core.cases import CASES, builder
-from repro_torch.core.examples import build_reduce2
+from repro_torch.core.examples import (build_quantize, build_reduce2,
+                                       build_residual_add, build_rmsnorm_ew)
+from repro_torch.core.fusion import ChainEdge, stitch_functions
 from repro_torch.core.nvcc import CSRC_DIR
 from repro_torch.core.targets.cuda_mapping import barrier_kind
 from repro_torch.suite import SUITE
@@ -157,6 +161,20 @@ def build_bounds(KB):
     return b.finish()
 
 
+def build_fused_chain():
+    """The rmsnorm -> residual -> quantize chain stitched as the queue's
+    fusion rewrite stitches it, both intermediates elided."""
+    fn, _, _ = stitch_functions(
+        [build_rmsnorm_ew(), build_residual_add(), build_quantize()],
+        [ChainEdge(0, 1, "y", "y", True), ChainEdge(1, 2, "z", "z", True)],
+        [[(0, "y"), (1, "y")], [(1, "z"), (2, "z")]])
+    return fn
+
+
+def _normal(rng, n):
+    return rng.standard_normal(n).astype(np.float32)
+
+
 def _ints(rng, n):
     return rng.integers(-8, 8, size=n).astype(np.float32)
 
@@ -193,6 +211,13 @@ EXTRA = {
                lambda rng: {"x": _ints(rng, 32),
                             "y": np.zeros(32, np.float32)},
                (32,), (16,), None, True),
+    "fused-chain": (build_fused_chain,
+                    lambda rng: {"k0_x": _normal(rng, 1024),
+                                 "k0_w": _normal(rng, 1024),
+                                 "k1_r": _normal(rng, 1024),
+                                 "k2_q": np.zeros(1024, np.float32)},
+                    (1024,), (256,), {"k0_inv_rms": 0.75, "k2_scale": 16.0},
+                    True),
     "reduce2": (build_reduce2,
                 lambda rng: {"inp": _ints(rng, 8),
                              "out": np.zeros(4, np.float32)},

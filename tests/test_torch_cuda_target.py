@@ -8,7 +8,11 @@ runs the emitted source on the CPU.  On a card (marker ``cuda``,
 skipped elsewhere): the kernels against the torch ``vector`` target, its
 plain version, on the same device — bitwise, since the suite's data is
 integer-valued or dyadic and the kernels are built with
-``-fmad=false``, and at ``rtol=1e-5, atol=1e-6`` on random-normal data.
+``-fmad=false``, and at ``rtol=1e-5, atol=1e-6`` on random-normal data;
+and the host runtime on the card, bitwise: a buffer's round trip through
+writes, reads and a map, the fused rmsnorm -> residual -> quantize chain
+against the unfused one and the ``vector`` target, and a kernel command's
+event completing only once the card has run the kernel.
 
 Regenerate the snapshots after an intentional emitter change:
 
@@ -350,3 +354,148 @@ def test_suite_ci_on_the_card_bitwise(card, name):
             assert got[o].tobytes() == ref[o].tobytes(), (name, params, o)
             assert got[o].tobytes() == expected[o].tobytes(), \
                 (name, params, o)
+
+
+# ---------------------------------------------------------------------------
+# the host runtime on the card: device buffers, maps, the fused chain
+# ---------------------------------------------------------------------------
+
+CHAIN = ("rmsnorm_ew", "residual_add", "quantize")
+CHAIN_N, CHAIN_LSZ = 1 << 20, 256
+SPIN_N, SPIN_ITERS = 1 << 20, 100_000
+
+
+def build_spin():
+    """x[g] += 1, ``iters`` times: a launch long enough (milliseconds)
+    that an event completed at the host call's return would be seen
+    completing before the card."""
+    b = KernelBuilder("spin")
+    x = b.arg_buffer("x", "float32")
+    iters = b.arg_scalar("iters", "int32")
+    g = b.global_id(0)
+    i = b.var(b.const(0), name="i")
+    acc = b.var(x[g], name="acc")
+    with b.while_loop() as loop:
+        loop.cond(i.get() < iters)
+        acc.set(acc.get() + 1.0)
+        i.set(i.get() + 1)
+    x[g] = acc.get()
+    return b.finish()
+
+
+@pytest.fixture(scope="module")
+def runtime_card():
+    """A context on the first CUDA device with the runtime tests' kernels
+    built at once; skips without a card or nvcc."""
+    from repro_torch.core.examples import (build_quantize,
+                                           build_residual_add,
+                                           build_rmsnorm_ew)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    try:
+        nvcc.find_nvcc()
+    except BuildError:
+        pytest.skip("needs nvcc")
+    ctx = Context()
+    dev = ctx.platform.get_devices("cuda")[0]
+    chain = ctx.create_program(build_rmsnorm_ew, build_residual_add,
+                               build_quantize)
+    spin = ctx.create_program(build_spin)
+    progs = [chain.create_kernel(n).bind(dev, (CHAIN_LSZ,)).prog
+             for n in CHAIN]
+    progs.append(spin.create_kernel().bind(dev, (256,)).prog)
+    build_many(progs)
+    return ctx, chain, spin
+
+
+@pytest.mark.cuda
+def test_buffer_round_trip_through_the_card(runtime_card):
+    from repro_torch.runtime import create_sub_buffer
+    ctx, _, _ = runtime_card
+    dev = ctx.platform.get_devices("cuda")[0]
+    host = np.random.default_rng(0).standard_normal(4096).astype(np.float32)
+    buf = ctx.create_buffer(4096, device=dev)
+    sub = create_sub_buffer(buf, 1024 * 4, 2048 * 4)
+    q = ctx.create_queue(dev)
+    q.enqueue_write_buffer(buf, host)
+    whole, part = np.zeros(4096, np.float32), np.zeros(2048, np.float32)
+    q.enqueue_read_buffer(buf, whole)
+    q.enqueue_read_buffer(sub, part)
+    region = q.enqueue_map_buffer(sub, "rw")
+    mapped = region.get().copy()
+    region.array[:] = -region.array
+    q.enqueue_unmap_buffer(region)
+    after = np.zeros(4096, np.float32)
+    q.enqueue_read_buffer(buf, after)
+    q.finish()
+    assert buf.data.is_cuda
+    assert whole.tobytes() == host.tobytes()
+    assert part.tobytes() == host[1024:3072].tobytes()
+    assert mapped.tobytes() == host[1024:3072].tobytes()
+    flipped = host.copy()
+    flipped[1024:3072] = -flipped[1024:3072]
+    assert after.tobytes() == flipped.tobytes()
+    buf.release()
+
+
+@pytest.mark.cuda
+def test_fused_chain_on_the_card_bitwise(runtime_card):
+    """The chain fused (one cuda launch), unfused (three) and on the
+    vector target of the same card: bitwise equal."""
+    ctx, chain, _ = runtime_card
+    dev = ctx.platform.get_devices("cuda")[0]
+    vec = ctx.platform.get_devices("vector")[0]
+    rng = np.random.default_rng(1)
+    xh, wh, rh = (rng.standard_normal(CHAIN_N).astype(np.float32)
+                  for _ in range(3))
+    outs, stats = {}, {}
+    for label, qdev, fusion in (("off", dev, "off"), ("flush", dev, "flush"),
+                                ("vector", vec, "off")):
+        bufs = {n: ctx.create_buffer(CHAIN_N, device=dev) for n in "xwryzq"}
+        queue = ctx.create_queue(qdev, fusion=fusion)
+        for n, h in zip("xwr", (xh, wh, rh)):
+            queue.enqueue_write_buffer(bufs[n], h)
+        k1, k2, k3 = (chain.create_kernel(n) for n in CHAIN)
+        k1.set_args(x=bufs["x"], w=bufs["w"], y=bufs["y"], inv_rms=0.75)
+        k2.set_args(y=bufs["y"], r=bufs["r"], z=bufs["z"])
+        k3.set_args(z=bufs["z"], q=bufs["q"], scale=16.0)
+        for k in (k1, k2, k3):
+            queue.enqueue_nd_range(k, (CHAIN_N,), (CHAIN_LSZ,))
+        outs[label] = np.zeros(CHAIN_N, np.float32)
+        queue.enqueue_read_buffer(bufs["q"], outs[label])
+        queue.finish()
+        stats[label] = (queue.dag_stats()["fused_chains"],
+                        queue.stats["launches"],
+                        bufs["y"].materialized)
+        for b in bufs.values():
+            b.release()
+    assert stats == {"off": (0, 3, True), "flush": (1, 1, False),
+                     "vector": (0, 3, True)}
+    assert outs["flush"].tobytes() == outs["off"].tobytes()
+    assert outs["flush"].tobytes() == outs["vector"].tobytes()
+
+
+@pytest.mark.cuda
+def test_kernel_event_completes_after_the_card(runtime_card):
+    """``Event.wait()`` on a kernel command returns only once the card
+    has finished: the stream is idle, and a copy on another stream (which
+    does not wait for the default one) reads the kernel's result."""
+    ctx, _, spin = runtime_card
+    dev = ctx.platform.get_devices("cuda")[0]
+    buf = ctx.create_buffer(SPIN_N, device=dev)
+    q = ctx.create_queue(dev)
+    q.enqueue_write_buffer(buf, np.arange(SPIN_N, dtype=np.float32) % 64)
+    k = spin.create_kernel().set_args(x=buf, iters=SPIN_ITERS)
+    ev = q.enqueue_nd_range(k, (SPIN_N,), (256,))
+    q.flush()
+    ev.wait()
+    assert torch.cuda.current_stream(dev.torch_device).query()
+    side = torch.cuda.Stream(dev.torch_device)
+    host = torch.empty(SPIN_N, dtype=torch.float32, pin_memory=True)
+    with torch.cuda.stream(side):
+        host.copy_(buf.data, non_blocking=True)
+    side.synchronize()
+    want = np.arange(SPIN_N, dtype=np.float32) % 64 + SPIN_ITERS
+    assert host.numpy().tobytes() == want.astype(np.float32).tobytes()
+    q.finish()
+    buf.release()
