@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``src/repro_torch``) on one card.
 
-Drives the port's five paths and checks every result: the kernel
+Drives the port's six paths and checks every result: the kernel
 compiler's launch path — KernelBuilder DSL -> IR -> PassManager ->
 WorkGroupPlan -> the hand-written ``cuda`` work-group target -> Context /
 Program / Kernel launch — two serving paths — ``repro_torch.launch.
@@ -15,8 +15,11 @@ hand-written CUDA ``flash_attention`` in the forward, with the blocked
 backward behind it — and the OpenCL host runtime: device-resident
 buffers, maps through a host bounce, an event-DAG queue whose fusion
 rewrite stitches a chain of kernels into one ``cuda`` launch, and the
-Chrome trace.  Each phase prints one JSON line; any mismatch, build error
-or launch error raises and the script exits non-zero.
+Chrome trace — and co-execution of one NDRange over several devices
+(two ``cuda`` devices of the card, the card and the host) with the
+per-kernel autotuner's ``auto`` device.  Each phase prints one JSON line
+or more; any mismatch, build error or launch error raises and the script
+exits non-zero.
 
   1. device: the card, torch/CUDA versions, and one parallel ``nvcc``
      build of every kernel the run launches, the work-group kernels and
@@ -158,7 +161,41 @@ or launch error raises and the script exits non-zero.
      kernels on those tensors, each and back to back, all timed like
      phase 5; the host time a command is a chain's stream span less its
      kernels' time, over its commands;
- 14. the kernels line, then the card's name and power limit, then the
+ 14. co-execution and the autotuner (main path), every result bitwise:
+     (a) ``examples/opencl_runtime.py``'s end: the scale kernel's
+     host-array launch split over ``ctx.platform.co_devices(2)``,
+     static, equal to ``ctx.launch``; (b) phase 5's GEMM (2048^3) and
+     stencil1d (1<<25, use_local 1) over two ``cuda`` devices of the
+     card, in static, steal and adaptive mode twice each, the inputs in
+     SharedBuffers kept across launches and the outputs in fresh ones
+     that start as NaN wherever the launch writes (GEMM's C holds the
+     answer in its even rows, so its merge takes the whole-buffer path;
+     stencil1d's y takes the span-granular one): equal to one launch
+     and to the oracle, the chunks covering every group, each output
+     merged by its path, the read-only buffers moving on no launch
+     after the first; wall ms beside one launch's
+     (host arrays in, host tensors out) and its kernel's, the merge ms,
+     groups and chunks per device, transfers, bytes each way and the
+     merge's path; (c) ``benchmarks/bench_coexec.py``'s lopsided platform
+     over the card — two throttled ``cuda`` devices at 1 ms a group and
+     one at 8 ms, a 0.25 s stall armed before every timed launch —
+     adaptive against the best all-positive static split, the ratio
+     beside the benchmark's 1.5x gate; (d) the card's ``cuda`` device
+     and the CPU's ``vector`` device, adaptive, over the scale kernel at
+     1<<24 float32, five launches (weights, groups and bytes each way per
+     launch), then a fresh executor warm-started from the persisted
+     tuning table, whose first two launches must give the CPU a weight
+     under 0.2 and fewer than half the groups; (e) every suite kernel at
+     its full shape on the ``auto`` device: the first launch tunes (the
+     ``vector`` and ``cuda`` candidates' us, both timed and neither
+     failed, and the winner), the second and a new
+     AutotunedKernel over the same table measure nothing, and the
+     outputs equal the ``vector`` target and the oracle; ``x = x * s``
+     enqueued on a queue of the ``auto`` device gives ``x * s`` once;
+     (f) ROADMAP C.10's input (-1.0 times zeros and NaNs) over (b)'s and
+     (d)'s pairs, each element equal to the single launch of the device
+     that ran it;
+ 15. the kernels line, then the card's name and power limit, then the
      result line.
 
 Launch counts are set to 0 just before each main-path phase and read
@@ -309,6 +346,24 @@ CHAIN = ("rmsnorm_ew", "residual_add", "quantize")
 CHAIN_N, CHAIN_LSZ = 16384 * 576, 256
 CHAIN_SCALE = 16.0
 CHAIN_REPS, CHAIN_ROUNDS = 20, 3
+# phase 14: co-execution and the autotuner.  (b) splits phase 5's GEMM and
+# stencil1d (use_local 1) over two cuda devices of the card; (c) is
+# benchmarks/bench_coexec.py's lopsided platform (its size, per-group
+# costs, stall and 1.5x gate) over the card; (d) the card and the host
+# over 1<<24 float32 (64 MB) in HOSTCO_LAUNCHES launches; (e) the suite on
+# the auto device at the full shapes (phase 4's); (f) ROADMAP C.10's
+# input at C10_N elements
+COEX_REAL = (0, 3)                  # REAL's gemm and stencil1d use_local 1
+LOPS_N, LOPS_LSZ = 96 * 16, 16
+LOPS_FAST_S, LOPS_SLOW_S, LOPS_STALL_S = 0.001, 0.008, 0.25
+LOPS_SWEEP = [(1, 1, 1), (4, 4, 1), (8, 8, 1), (16, 16, 1),
+              (47.5, 47.5, 1)]
+LOPS_REPEATS, LOPS_GATE = 3, 1.5
+HOSTCO_N, HOSTCO_LAUNCHES = 1 << 24, 5
+# (d)'s warm start, the reference test's criteria: the CPU's weight and
+# its share of the groups in each of the fresh executor's two launches
+WARM_CPU_WEIGHT, WARM_CPU_GROUPS = 0.2, 0.5
+C10_N = 1 << 20
 
 
 def emit(phase, **fields):
@@ -1476,6 +1531,437 @@ def host_runtime_phase(torch, np, time_ms, flush, ctx, cuda_dev, vec_dev,
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: co-execution and the autotuner
+# ---------------------------------------------------------------------------
+
+def build_coexec_scale():
+    """``benchmarks/bench_coexec.py``'s kernel: y = x * 2 + g."""
+    from repro_torch.core import KernelBuilder
+    b = KernelBuilder("coexec_scale")
+    x = b.arg_buffer("x", "float32")
+    y = b.arg_buffer("y", "float32")
+    g = b.global_id(0)
+    y[g] = x[g] * 2.0 + g
+    return b.finish()
+
+
+def card_programs(kernel, devices, lsz):
+    """The ``cuda`` programs ``kernel`` runs on ``devices`` (those of
+    driver cuda), whose ``launches`` count its kernel launches."""
+    return [kernel.bind(d, lsz).prog for d in devices
+            if d.info.driver == "cuda"]
+
+
+def zero_counts(progs):
+    for p in progs:
+        p.launches = 0
+
+
+def transfers(stats, names):
+    """Transfer commands of a co-executed launch, per buffer."""
+    return {n: sum(1 for e in stats.transfer_events
+                   if e.name.split("->")[0] == f"migrate:{n}")
+            for n in names}
+
+
+def covered(stats):
+    """The union of a co-executed launch's chunk spans, as sorted
+    disjoint group ranges: [(0, n_groups)] when no group was left out."""
+    out = []
+    for lo, hi in sorted((lo, hi) for _, lo, hi in stats.chunk_spans):
+        if out and lo <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], hi))
+        else:
+            out.append((lo, hi))
+    return out
+
+
+def output_fill(np, name, shape, expected):
+    """The canonical value a co-executed launch's outputs start from in
+    (b): NaN wherever the launch must write, so a chunk that is dropped
+    or runs over the wrong groups leaves NaN for the comparison to see.
+    GEMM's C holds the answer in its even rows, so each device changes
+    only odd rows, far more runs than span bookkeeping keeps, and the
+    merge takes the whole-buffer path; stencil1d's y is NaN throughout,
+    so each device writes a few contiguous spans and the merge takes the
+    span-granular path.  Returns the fills and the path each output's
+    merge must take."""
+    if name == "gemm":
+        c = expected["C"].reshape(shape["m"], shape["n"]).copy()
+        c[1::2] = np.nan
+        return {"C": c.reshape(-1)}, {"C": "whole"}
+    return ({o: np.full_like(v, np.nan) for o, v in expected.items()},
+            {o: "spans" for o in expected})
+
+
+def coexec_row(stats, wall_s, progs):
+    return {"wall_ms": wall_s * 1e3, "merge_ms": stats.merge_s * 1e3,
+            "groups_per_device": stats.groups_per_device,
+            "chunks_per_device": stats.chunks_per_device,
+            "steals_per_device": stats.steals_per_device,
+            "migrations": stats.migrations,
+            "partial_migrations": stats.partial_migrations,
+            "bytes_to_device": stats.bytes_to_device,
+            "bytes_to_host": stats.bytes_to_host,
+            "merge_paths": stats.merge_paths,
+            "launches": sum(p.launches for p in progs)}
+
+
+def coexec_two_devices(torch, np, time_ms, ctx, card_dev, real_runs, drv,
+                       sync):
+    """(b): phase 5's GEMM and stencil1d split over two devices of the
+    card in each mode, twice, with the inputs in SharedBuffers kept
+    across launches and each launch's outputs in fresh ones (see
+    ``output_fill``)."""
+    from repro_torch.core import TuningTable
+    devs = ctx.platform.co_devices(2, driver=drv)
+    co = ctx.create_co_executor(devs, tuning_table=TuningTable())
+    for idx in COEX_REAL:
+        name, sk, shape, params, prog = real_runs[idx]
+        inputs = sk.make_inputs(shape, params)
+        expected = real_expected(np, name, sk, shape, params, inputs)
+        gsz, lsz = sk.launch_dims(shape, params)
+        k = prog.create_kernel().set_args(**inputs)
+        sync()
+        t0 = time.perf_counter()
+        got = ctx.launch(k, gsz, lsz, device=card_dev)
+        single = {o: got[o].cpu().numpy() for o in sk.outputs}
+        single_wall_s = time.perf_counter() - t0
+        for o in sk.outputs:
+            assert single[o].tobytes() == expected[o].tobytes(), (name, o)
+        binary = k.bind(card_dev, lsz)
+        dbufs = {n: v.reshape(-1) for n, v in got.items()}
+        kernel_ms = time_ms(lambda: binary.launch_ndrange(dbufs, gsz),
+                            reps=5, warmup=1)
+        read_only = [n for n in inputs if n not in sk.outputs]
+        shared = {n: co.shared_buffer(inputs[n], n) for n in read_only}
+        kc = prog.create_kernel().set_args(**shared)
+        progs = card_programs(kc, devs, lsz)
+        fills, paths = output_fill(np, name, shape, single)
+        rows = []
+        for mode in ("static", "steal", "adaptive"):
+            for rep in (1, 2):
+                outs = {o: co.shared_buffer(fills[o], o) for o in sk.outputs}
+                kc.set_args(**outs)
+                zero_counts(progs)
+                t0 = time.perf_counter()
+                out = co.launch(kc, gsz, lsz, mode=mode)
+                wall_s = time.perf_counter() - t0
+                st = co.last_stats
+                co.finish()
+                for o in sk.outputs:
+                    assert out[o].numpy().tobytes() == single[o].tobytes(), \
+                        (name, mode, o, "co-executed vs one launch")
+                assert covered(st) == [(0, st.n_groups)], \
+                    (name, mode, "chunks left groups out", covered(st))
+                assert {o: st.merge_paths[o] for o in sk.outputs} == paths, \
+                    (name, mode, st.merge_paths)
+                moved = transfers(st, inputs)
+                if rows:
+                    assert not any(moved[n] for n in read_only), \
+                        (name, mode, "a read-only buffer moved", moved)
+                assert not progs or sum(p.launches for p in progs) > 0
+                rows.append({"mode": mode, "launch": rep,
+                             "transfers": moved,
+                             **coexec_row(st, wall_s, progs)})
+                for sb in outs.values():
+                    sb.release()
+        for sb in shared.values():
+            sb.release()
+        emit(14, part="two_devices", kernel=name, shape=shape,
+             params=params, devices=[d.info.name for d in devs],
+             driver=drv, bitwise=True, covered=True, merge_paths=paths,
+             single_wall_ms=single_wall_s * 1e3,
+             single_kernel_ms=kernel_ms, read_only=read_only, runs=rows)
+        del got, dbufs, shared
+        if card_dev.torch_device.type == "cuda":
+            torch.cuda.empty_cache()
+    return co
+
+
+def coexec_lopsided(np, ctx, card_dev, drv):
+    """(c): bench_coexec.py's lopsided platform over the card: two fast
+    devices and one at 8x their cost per group, stalled before every
+    timed launch; adaptive against the best all-positive static split."""
+    import dataclasses as dc
+    from repro_torch.core import TuningTable
+    from repro_torch.runtime import Context, ThrottledDevice
+
+    def platform():
+        costs = ((LOPS_FAST_S, "fast"), (LOPS_FAST_S, "fast"),
+                 (LOPS_SLOW_S, "slow"))
+        devs = [ThrottledDevice(
+            dc.replace(card_dev.info, name=f"lops-{cls}-{i}", driver=drv),
+            card_dev.torch_device, seconds_per_group=s, coexec_class=cls,
+            window_chunks=False) for i, (s, cls) in enumerate(costs)]
+        lctx = Context(devices=devs, platform=ctx.platform)
+        k = lctx.create_program(build_coexec_scale).create_kernel()
+        k.set_args(x=np.arange(LOPS_N, dtype=np.float32),
+                   y=np.zeros(LOPS_N, np.float32))
+        return devs, lctx, k
+
+    devs, lctx, k = platform()
+    ref = ctx.launch(k, (LOPS_N,), (LOPS_LSZ,), device=card_dev)
+    ref = ref["y"].cpu().numpy().tobytes()
+
+    def timed(co, k, slow, mode, weights=None):
+        # each timed launch starts on an idle platform: a launch waits for
+        # the last one's stragglers, and that wait is not this launch's
+        co.finish()
+        slow.stall(LOPS_STALL_S)
+        t0 = time.perf_counter()
+        out = co.launch(k, (LOPS_N,), (LOPS_LSZ,), mode=mode,
+                        weights=weights)
+        wall_s = time.perf_counter() - t0
+        assert out["y"].numpy().tobytes() == ref, (mode, weights)
+        return wall_s
+
+    co = lctx.create_co_executor(devs, tuning_table=TuningTable())
+    progs = card_programs(k, devs, (LOPS_LSZ,))
+    co.launch(k, (LOPS_N,), (LOPS_LSZ,), mode="static")
+    zero_counts(progs)
+    sweep = {"/".join(map(str, w)): min(
+        timed(co, k, devs[2], "static", list(w))
+        for _ in range(LOPS_REPEATS)) for w in LOPS_SWEEP}
+    static_launches = sum(p.launches for p in progs)
+    co.finish()
+    best = min(sweep, key=sweep.get)
+
+    devs, lctx, k = platform()
+    table = TuningTable()
+    co = lctx.create_co_executor(devs, tuning_table=table)
+    progs = card_programs(k, devs, (LOPS_LSZ,))
+    co.launch(k, (LOPS_N,), (LOPS_LSZ,), mode="static")
+    for _ in range(3):
+        co.launch(k, (LOPS_N,), (LOPS_LSZ,), mode="adaptive")
+    zero_counts(progs)
+    adaptive_s = min(timed(co, k, devs[2], "adaptive")
+                     for _ in range(LOPS_REPEATS))
+    st = co.last_stats
+    co.finish()
+    emit(14, part="lopsided", n=LOPS_N, local_size=LOPS_LSZ,
+         seconds_per_group={"fast": LOPS_FAST_S, "slow": LOPS_SLOW_S},
+         stall_s=LOPS_STALL_S, bitwise=True,
+         static_sweep_ms={w: s * 1e3 for w, s in sweep.items()},
+         best_static=best, best_static_ms=sweep[best] * 1e3,
+         adaptive_ms=adaptive_s * 1e3,
+         speedup=sweep[best] / adaptive_s, reference_gate=LOPS_GATE,
+         weights=st.weights, groups_per_device=st.groups_per_device,
+         steals_per_device=st.steals_per_device,
+         launches={"static": static_launches,
+                   "adaptive": sum(p.launches for p in progs)})
+
+
+def coexec_card_and_host(np, ctx, card_dev, host_prog):
+    """(d): the card and the CPU's vector device, adaptive, over the
+    example's scale kernel at HOSTCO_N float32, then a fresh executor
+    warm-started from the persisted tuning table."""
+    from repro_torch.core import TuningTable
+    from repro_torch.runtime import Context, Platform
+    cpu_vec = Platform(torch_device="cpu").get_devices("vector")[0]
+    pair = [card_dev, cpu_vec]
+    hctx = Context(devices=pair, platform=ctx.platform)
+    x0 = np.random.default_rng(14).standard_normal(HOSTCO_N,
+                                                   dtype=np.float32)
+    k = host_prog.create_kernel("scale").set_args(x=x0, s=2.0)
+    single = ctx.launch(k, (HOSTCO_N,), (HOST_LSZ,), device=card_dev)
+    single = single["x"].cpu().numpy().tobytes()
+    progs = card_programs(k, pair, (HOST_LSZ,))
+    table = TuningTable()
+    n_groups = HOSTCO_N // HOST_LSZ
+
+    def run(co, count):
+        rows = []
+        for i in range(count):
+            zero_counts(progs)
+            t0 = time.perf_counter()
+            out = co.launch(k, (HOSTCO_N,), (HOST_LSZ,), mode="adaptive")
+            wall_s = time.perf_counter() - t0
+            assert out["x"].numpy().tobytes() == single, ("launch", i)
+            st = co.last_stats
+            assert covered(st) == [(0, n_groups)], ("launch", i)
+            rows.append({"launch": i + 1, "weights": st.weights,
+                         **coexec_row(st, wall_s, progs)})
+        co.finish()
+        return rows
+
+    cold = run(hctx.create_co_executor(pair, tuning_table=table),
+               HOSTCO_LAUNCHES)
+    warm = run(hctx.create_co_executor(pair, tuning_table=table), 2)
+    cpu = cpu_vec.info.name
+    for row in warm:
+        assert row["weights"][cpu] < WARM_CPU_WEIGHT, \
+            ("warm start", row["weights"])
+        assert row["groups_per_device"].get(cpu, 0) \
+            < WARM_CPU_GROUPS * n_groups, row
+    assert not progs or all(r["launches"] > 0 for r in cold + warm)
+    emit(14, part="card_and_host", n=HOSTCO_N, local_size=HOST_LSZ,
+         devices=[d.info.name for d in pair], bitwise=True,
+         n_groups=n_groups, cold=cold, warm_start=warm,
+         persisted=table.get_coexec(TuningTable.make_coexec_key(
+             k.ir_hash, ["cuda", "vector"])))
+    return hctx, pair
+
+
+def coexec_auto(np, ctx, vec_dev, host_prog, auto_runs):
+    """(e): the suite on the auto device: the first launch of a shape
+    tunes, the second and a new AutotunedKernel over the same table
+    measure nothing; a queue launch of x = x * s runs once, in place."""
+    from repro_torch.core import TuningTable, set_default_table
+    from repro_torch.core.api import _compile_kernel
+    from repro_torch.core.nvcc import BUILD_DIR
+    auto = ctx.platform.get_devices("auto")[0]
+    path = BUILD_DIR / "phase14_tuning.json"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if path.exists():
+        path.unlink()
+    table = TuningTable(str(path))
+    set_default_table(table)
+    rows = []
+    try:
+        for name, sk, shape, params, prog in auto_runs:
+            inputs = sk.make_inputs(shape, params)
+            expected = sk.oracle(inputs, shape, params)
+            gsz, lsz = sk.launch_dims(shape, params)
+            k = prog.create_kernel().set_args(**inputs)
+            decisions = [auto.cache_stats()["tune_decisions"]]
+            t0 = time.perf_counter()
+            got = ctx.launch(k, gsz, lsz, device=auto)
+            tune_s = time.perf_counter() - t0
+            decisions.append(auto.cache_stats()["tune_decisions"])
+            again = ctx.launch(k, gsz, lsz, device=auto)
+            decisions.append(auto.cache_stats()["tune_decisions"])
+            binary = k.bind(auto, lsz)
+            fresh = _compile_kernel(prog.builder(k.name), lsz, target="auto",
+                                    cache=auto.compile_cache,
+                                    device_key=auto.info.name)
+            new = fresh(inputs, gsz, device=auto.torch_device)
+            decisions.append(auto.cache_stats()["tune_decisions"])
+            assert decisions[1:] == [decisions[0] + 1] * 3, (name,
+                                                              decisions)
+            assert fresh.last_winner == binary.last_winner
+            ref = ctx.launch(k, gsz, lsz, device=vec_dev)
+            for o in sk.outputs:
+                g = got[o].cpu().numpy().tobytes()
+                assert g == again[o].cpu().numpy().tobytes() \
+                    == new[o].cpu().numpy().tobytes() \
+                    == ref[o].cpu().numpy().tobytes() \
+                    == expected[o].tobytes(), (name, o)
+            key = TuningTable.make_key(
+                prog.ir_hash(k.name), lsz, gsz,
+                sorted(binary.options.items()), device=auto.info.name)
+            ent = json.loads(path.read_text())["winners"][key]
+            # the card's kernel was timed and nothing failed: no plain
+            # candidate won for want of it
+            assert ent.get("failed", {}) == {}, (name, ent)
+            assert set(ent["timings_us"]) == {"vector", "cuda"}, (name, ent)
+            rows.append({"kernel": name, "params": params, "shape": shape,
+                         "timings_us": ent["timings_us"],
+                         "winner": ent["target"],
+                         "failed": ent.get("failed", {}),
+                         "tune_s": tune_s})
+        host = np.arange(HOST_N, dtype=np.float32) - 100.0
+        buf = ctx.create_buffer(HOST_N, device=auto)
+        scale = host_prog.create_kernel("scale").set_args(x=buf, s=3.0)
+        q = ctx.create_queue(auto)
+        out = np.zeros(HOST_N, np.float32)
+        q.enqueue_write_buffer(buf, host)
+        q.enqueue_nd_range(scale, (HOST_N,), (HOST_LSZ,))
+        q.enqueue_read_buffer(buf, out)
+        q.finish()
+        assert out.tobytes() == (host * np.float32(3.0)).tobytes(), \
+            "auto queue launch applied more than once"
+        buf.release()
+    finally:
+        set_default_table(None)
+    emit(14, part="auto", device=auto.info.name, kernels=rows,
+         table_entries=len(table), queue_once_bitwise=True,
+         queue_winner=scale.bind(auto, (HOST_LSZ,)).last_winner)
+
+
+def coexec_c10(np, host_prog, pairs):
+    """(f): ROADMAP C.10's input — -1.0 times zeros and NaNs — over each
+    pair of (context, executor): each element equal to the single launch
+    of the device that ran it (the sign flips of the zeros merged, as the
+    reference's ``!=`` merge does not)."""
+    x = np.zeros(C10_N, np.float32)
+    x[::3] = np.nan
+    k = host_prog.create_kernel("scale").set_args(x=x, s=-1.0)
+    rows = []
+    for label, pctx, co in pairs:
+        singles = {d: pctx.launch(k, (C10_N,), (HOST_LSZ,), device=d)["x"]
+                   .cpu().numpy() for d in co.devices}
+        merged = co.launch(k.clone(), (C10_N,), (HOST_LSZ,),
+                           mode="static")["x"].numpy()
+        co.finish()
+        L = C10_N // len(co.devices)
+        want = np.concatenate([singles[d][i * L:(i + 1) * L]
+                               for i, d in enumerate(co.devices)])
+        assert merged.tobytes() == want.tobytes(), (label, "C.10")
+        first = singles[co.devices[0]]
+        rows.append({
+            "pair": label, "devices": [d.info.name for d in co.devices],
+            "bitwise": True,
+            "neg_zeros": int(np.sum((merged.view(np.uint32)
+                                     == 0x80000000))),
+            "nan_bits": sorted({f"{b:#010x}" for b in
+                                merged.view(np.uint32)[::3].tolist()}),
+            "devices_agree": all(v.tobytes() == first.tobytes()
+                                 for v in singles.values())})
+    emit(14, part="c10", n=C10_N, runs=rows)
+
+
+def coexec_phase(torch, np, time_ms, ctx, card_dev, vec_dev, host_prog,
+                 real_runs, auto_runs, drv="cuda"):
+    """Phase 14: co-execution and the autotuner on the card (see the
+    module docstring).  ``drv`` is the driver of the card's co-devices."""
+    from repro_torch.core import TuningTable
+
+    def sync():
+        if card_dev.torch_device.type == "cuda":
+            torch.cuda.synchronize()
+
+    # -- (a) examples/opencl_runtime.py:83-94 ------------------------------
+    host = np.arange(HOST_N, dtype=np.float32)
+    k_host = host_prog.create_kernel("scale").set_args(x=host.copy(), s=2.0)
+    single = ctx.launch(k_host, (HOST_N,), (HOST_LSZ,))["x"].cpu().numpy()
+    devs = ctx.platform.co_devices(2)
+    co = ctx.create_co_executor(devs, tuning_table=TuningTable())
+    merged = co.launch(k_host.clone(), (HOST_N,), (HOST_LSZ,),
+                       mode="static")
+    st = co.last_stats
+    co.finish()
+    assert merged["x"].numpy().tobytes() == single.tobytes(), \
+        "walk-through's co-execution"
+    emit(14, part="walkthrough_end", devices=[d.info.name for d in devs],
+         driver=devs[0].info.driver, single_device=ctx.devices[0].info.name,
+         bitwise=True, groups_per_device=st.groups_per_device,
+         migrations=st.migrations)
+
+    two = coexec_two_devices(torch, np, time_ms, ctx, card_dev, real_runs,
+                             drv, sync)
+    coexec_lopsided(np, ctx, card_dev, drv)
+    hctx, pair = coexec_card_and_host(np, ctx, card_dev, host_prog)
+    coexec_auto(np, ctx, vec_dev, host_prog, auto_runs)
+    coexec_c10(np, host_prog,
+               [("two_devices", ctx, two),
+                ("card_and_host", hctx, hctx.create_co_executor(pair))])
+
+
+def real_expected(np, name, sk, shape, params, inputs):
+    """The oracle's outputs of a phase-5 run.  GEMM's come from a float64
+    product: every partial sum of its integer-valued operands is an
+    integer below 2**24, so that product is exact and equals the
+    oracle's ordered float32 sum bitwise."""
+    if name != "gemm":
+        return sk.oracle(inputs, shape, params)
+    m, n, kk = shape["m"], shape["n"], shape["k"]
+    return {"C": (inputs["A"].reshape(m, kk).astype(np.float64)
+                  @ inputs["B"].reshape(kk, n).astype(np.float64))
+            .astype(np.float32).reshape(-1)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1527,11 +2013,18 @@ def main() -> int:
     host_prog = ctx.create_program(build_scale, build_offset).build()
     chain_prog = ctx.create_program(build_rmsnorm_ew, build_residual_add,
                                     build_quantize).build()
+    lops_prog = ctx.create_program(build_coexec_scale).build()
+    auto_runs = []
+    for name, sk in SUITE.items():
+        shape = sk.shapes["full"]
+        params = next(iter(sk.space(shape)))
+        auto_runs.append((name, sk, shape, params,
+                          ctx.create_program(sk.build(shape, params))))
     warm_queue, warm_bufs, fused_spec = warm_fused_chain(ctx, cuda_dev,
                                                          chain_prog)
     binaries = [dot_prog.create_kernel().bind(cuda_dev, (QS_LSZ,))]
     binaries += [r[3].create_kernel().bind(cuda_dev, r[6]) for r in case_runs]
-    for runs in (full_runs, real_runs):
+    for runs in (full_runs, real_runs, auto_runs):
         for name, sk, shape, params, prog in runs:
             binaries.append(prog.create_kernel().bind(
                 cuda_dev, sk.launch_dims(shape, params)[1]))
@@ -1541,6 +2034,7 @@ def main() -> int:
                  for n in CHAIN]
     binaries.append(fused_spec.program.binary_for(
         fused_spec.kernel_name, (CHAIN_LSZ,), device=cuda_dev))
+    binaries.append(lops_prog.create_kernel().bind(cuda_dev, (LOPS_LSZ,)))
     progs = {b.prog.digest: b.prog for b in binaries}
     t0 = time.perf_counter()
     secs = build_parallel([p.nvcc_job() for p in progs.values()]
@@ -1637,17 +2131,7 @@ def main() -> int:
     for name, sk, shape, params, prog in real_runs:
         t_in = time.perf_counter()
         inputs = sk.make_inputs(shape, params)
-        if name == "gemm":
-            # every partial sum of the integer-valued operands is an
-            # integer below 2**24, so the float64 product is exact and
-            # equals the oracle's ordered float32 sum bitwise
-            m, n, kk = shape["m"], shape["n"], shape["k"]
-            expected = {"C": (inputs["A"].reshape(m, kk).astype(np.float64)
-                              @ inputs["B"].reshape(kk, n)
-                              .astype(np.float64)).astype(np.float32)
-                        .reshape(-1)}
-        else:
-            expected = sk.oracle(inputs, shape, params)
+        expected = real_expected(np, name, sk, shape, params, inputs)
         k = prog.create_kernel()
         k.set_args(**inputs)
         gsz, lsz = sk.launch_dims(shape, params)
@@ -1777,8 +2261,15 @@ def main() -> int:
                                       cuda_dev, vec_dev, host_prog,
                                       chain_prog, fused_spec, reset_counts))
     emit(13, part="done", seconds=time.perf_counter() - t13)
+    torch.cuda.empty_cache()
 
-    # -- 14. kernels line, card, result --------------------------------------------
+    # -- 14. co-execution and the autotuner (main path) ---------------------------
+    t14 = time.perf_counter()
+    coexec_phase(torch, np, time_ms, ctx, cuda_dev, vec_dev, host_prog,
+                 real_runs, auto_runs)
+    emit(14, part="done", seconds=time.perf_counter() - t14)
+
+    # -- 15. kernels line, card, result --------------------------------------------
     print(json.dumps({"kernels": [
         {"name": e["name"], "route": "cuda",
          "source": e.get("source", KERNEL_SOURCE),

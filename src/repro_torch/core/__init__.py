@@ -8,6 +8,8 @@ Public API:
                      producing the WorkGroupPlan all targets share
   run_ndrange      — fiber-based reference executor (semantics oracle)
   CompilationCache — LRU + disk compilation cache with a plan tier
+  TuningTable      — persistent per-kernel-shape target winners; an
+                     AutotunedKernel picks its target by measurement
   ReproError       — typed error hierarchy with OpenCL-style status codes
 """
 
@@ -20,6 +22,8 @@ from .errors import (BuildError, InvalidArgError, InvalidBufferError,
 from .passes import (ParallelRegionMD, Pass, PassManager, VerifierError,
                      WorkGroupPlan, build_plan, plan_count, verify_ir)
 from .program import Kernel, Program
+from .autotune import AutotunedKernel, TuningTable, default_table, \
+    set_default_table
 from .interp import run_ndrange
 
 __all__ = [
@@ -30,5 +34,6 @@ __all__ = [
     "MapError", "status_name",
     "ParallelRegionMD", "Pass", "PassManager", "VerifierError",
     "WorkGroupPlan", "build_plan", "plan_count", "verify_ir",
+    "AutotunedKernel", "TuningTable", "default_table", "set_default_table",
     "run_ndrange",
 ]

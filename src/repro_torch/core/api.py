@@ -12,6 +12,8 @@ Targets:
   ``loop``    — serial work-item loops ('basic' driver analogue)
   ``cuda``    — CUDA C, one thread block per work-group, built by ``nvcc``
                 for the H100 (:mod:`repro_torch.core.targets.cuda_target`)
+  ``auto``    — target chosen per kernel shape by the autotuner
+                (:mod:`repro_torch.core.autotune`)
 
 Compilation is memoized in a content-addressed
 :class:`~repro_torch.core.cache.CompilationCache` keyed by the canonical
@@ -146,15 +148,20 @@ def _compile_kernel(build: Callable[[], Function],
                     merge_uniform: bool = True,
                     use_vml: bool = False,
                     cache: Union[bool, CompilationCache, None] = True,
-                    plan_cache: Optional[CompilationCache] = None
-                    ) -> CompiledKernel:
+                    device_key: Optional[str] = None,
+                    plan_cache: Optional[CompilationCache] = None):
     """Compile ``build()`` for ``local_size`` on ``target``.
 
     ``cache=True`` uses the process-default compilation cache; pass a
     :class:`CompilationCache` for a private one (runtime devices do) or
-    ``False``/``None`` to always recompile.  ``plan_cache`` holds the
-    stage-level cache for the target-independent pipeline prefix
-    (:class:`WorkGroupPlan`); it defaults to the kernel cache."""
+    ``False``/``None`` to always recompile.  ``target="auto"`` defers the
+    choice to the autotuner and returns an
+    :class:`~repro_torch.core.autotune.AutotunedKernel`; ``device_key``
+    names the device the tuning decision belongs to (runtime devices pass
+    their name) and never enters the compilation-cache key.
+    ``plan_cache`` holds the stage-level cache for the
+    target-independent pipeline prefix (:class:`WorkGroupPlan`); it
+    defaults to the kernel cache."""
     opts = dict(horizontal=horizontal, merge_uniform=merge_uniform,
                 use_vml=use_vml)
     cache_obj: Optional[CompilationCache]
@@ -167,6 +174,14 @@ def _compile_kernel(build: Callable[[], Function],
     if plan_cache is None:
         plan_cache = cache_obj
     fn = build()
+    if target == "auto":
+        from .autotune import (AutotunedKernel, DEFAULT_CANDIDATES,
+                               default_table)
+        return AutotunedKernel(fn, build, local_size, opts,
+                               DEFAULT_CANDIDATES, default_table(),
+                               cache_obj, _compile_kernel,
+                               device_key=device_key or "",
+                               plan_cache=plan_cache)
     if cache_obj is None:
         return _run_pipeline(fn, local_size, target, plan_cache=plan_cache,
                              **opts)

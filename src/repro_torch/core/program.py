@@ -40,10 +40,13 @@ from .passes import VerifierError, build_plan
 
 def _classify(value) -> str:
     """Host-API argument class of ``value``: ``"host"`` (an array or
-    tensor), ``"device"`` (Buffer/SubBuffer view) or ``"scalar"``.
-    Duck-typed so the core layer never imports the runtime layer."""
+    tensor), ``"shared"`` (SharedBuffer), ``"device"`` (Buffer/SubBuffer
+    view) or ``"scalar"``.  Duck-typed so the core layer never imports the
+    runtime layer."""
     if isinstance(value, (np.ndarray, torch.Tensor)) and value.ndim > 0:
         return "host"
+    if hasattr(value, "tracker") and hasattr(value, "host"):
+        return "shared"
     # probe `origin`, not `data`: hasattr(value, "data") would invoke the
     # property getter, materializing a still-lazy pooled buffer and
     # defeating fusion's intermediate elision
@@ -60,8 +63,11 @@ _NP_OF_TORCH = {torch.float32: np.dtype("float32"),
 
 
 def _buffer_dtype(value) -> np.dtype:
-    """The numpy dtype of a buffer-class argument (an array, a tensor or
-    a device buffer, whose ``dtype`` may be any numpy spelling)."""
+    """The numpy dtype of a buffer-class argument (an array, a tensor, a
+    SharedBuffer over one, or a device buffer, whose ``dtype`` may be any
+    numpy spelling)."""
+    if _classify(value) == "shared":
+        value = value.host
     if isinstance(value, torch.Tensor):
         try:
             return _NP_OF_TORCH[value.dtype]
@@ -196,7 +202,9 @@ class Program:
                    device=None, target: Optional[str] = None):
         """The launchable work-group function of kernel ``name`` for
         ``(device, local_size, target)`` — a
-        :class:`~repro_torch.core.api.CompiledKernel`, memoized in the
+        :class:`~repro_torch.core.api.CompiledKernel` (or an
+        :class:`~repro_torch.core.autotune.AutotunedKernel` on an
+        ``auto`` device or for ``target="auto"``), memoized in the
         device's compilation cache; the target defaults to the device
         driver's."""
         if name not in self._builders:
@@ -391,7 +399,8 @@ class Kernel:
     def missing_args(self) -> List[str]:
         return [n for n in self._order if n not in self._args]
 
-    def launch_args(self, accept: Sequence[str] = ("host", "device")
+    def launch_args(self, accept: Sequence[str] = ("host", "shared",
+                                                   "device")
                     ) -> Tuple[Dict[str, object], Dict[str, object]]:
         """The bound ``(buffers, scalars)`` dicts for a launch.
 
@@ -399,7 +408,8 @@ class Kernel:
         (CL_INVALID_KERNEL_ARGS) when arguments are unset, or when a
         buffer argument's class is outside ``accept`` — e.g. a
         device-bound Buffer handed to ``Context.launch``, which takes
-        arrays and tensors."""
+        arrays and tensors, or to a co-executed launch, which needs
+        arrays, tensors or SharedBuffers."""
         missing = self.missing_args()
         if missing:
             raise InvalidArgError(

@@ -21,9 +21,12 @@ Buffers live in device memory and kernels launch in place on them
 direct path for kernels bound to host arrays: it accepts numpy arrays or
 tensors, copies them onto the device (the caller's arrays stay untouched,
 as in the functional reference) and returns the buffers as tensors on the
-device.  :meth:`Context.trace` records the context's queues as a Chrome
-trace.  The serving engine takes its dispatch DAG and KV page pool from
-a context too.
+device.  The same ``Kernel`` object also drives multi-device
+co-execution (``ctx.create_co_executor(...).launch(k, ...)``, returning
+the merged buffers on the host) with bitwise-identical results.
+:meth:`Context.trace` records the context's queues as a Chrome trace.
+The serving engine takes its dispatch DAG and KV page pool from a
+context too.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from ..core.program import Kernel, Program
 from .memory import BufferPool
 from .platform import Buffer, Device, Platform, create_buffer
 from .queue import CommandQueue
+from .scheduler import CoExecutor
 from .trace import ChromeTrace
 
 __all__ = [
@@ -58,7 +62,10 @@ class Context:
     """cl_context analogue: devices + a shared plan/compilation tier.
 
     ``devices`` defaults to every device of ``platform``, which defaults
-    to ``Platform()`` — the CUDA devices."""
+    to ``Platform()`` — the CUDA devices.  An explicit device list is a
+    fixed scope (using another device is CL_INVALID_DEVICE); a
+    platform-spanning context adopts devices the platform grows later
+    (``co_devices``)."""
 
     #: smallest size class of the per-device buffer pools
     pool_min_class = 256
@@ -66,6 +73,7 @@ class Context:
     def __init__(self, devices: Optional[Sequence[Device]] = None,
                  platform: Optional[Platform] = None):
         self.platform = platform if platform is not None else Platform()
+        self._explicit_devices = devices is not None
         self.devices: List[Device] = (list(devices)
                                       if devices is not None
                                       else self.platform.get_devices())
@@ -88,8 +96,13 @@ class Context:
     def _check_device(self, device: Optional[Device], what: str) -> Device:
         if device is None:
             return self.devices[0]
-        if device in self.devices:
-            return device
+        with self._lock:
+            if device in self.devices:
+                return device
+            if not self._explicit_devices and \
+                    device in self.platform.devices:
+                self.devices.append(device)
+                return device
         raise InvalidArgError(
             f"{what}: device {device.info.name!r} is not part of "
             f"this context (CL_INVALID_DEVICE); context devices: "
@@ -177,12 +190,30 @@ class Context:
                 self._trace = None
             tr.detach_all()
 
-    def create_co_executor(self, *args, **kwargs):
-        """Multi-device co-execution is not ported yet: it comes with
-        ``runtime/scheduler.py`` (ROADMAP A item 2)."""
-        raise InvalidArgError(
-            "Context.create_co_executor: co-execution is not ported to "
-            "repro_torch yet (ROADMAP A item 2: runtime/scheduler.py)")
+    def create_co_executor(self, devices: Optional[Sequence[Device]] = None,
+                           chunks_per_device: int = 4,
+                           tuning_table=None,
+                           min_chunk_groups: int = 1,
+                           hguided_divisor: float = 2.0,
+                           ewma_alpha: float = 0.5) -> CoExecutor:
+        """A multi-device :class:`~repro_torch.runtime.scheduler.
+        CoExecutor` over ``devices`` (default: every context device;
+        given devices are scope-checked like every other context
+        factory) — any number of heterogeneous devices, each
+        specializing kernels through the context's shared plan tier.
+        Its :meth:`~repro_torch.runtime.scheduler.CoExecutor.launch`
+        consumes the same :class:`~repro_torch.core.program.Kernel`
+        objects queues do; the keyword arguments configure the
+        ``steal`` and ``adaptive`` scheduling modes."""
+        if devices is not None:
+            devices = [self._check_device(d, "create_co_executor")
+                       for d in devices]
+        return CoExecutor(devices if devices is not None else self.devices,
+                          chunks_per_device=chunks_per_device,
+                          tuning_table=tuning_table,
+                          min_chunk_groups=min_chunk_groups,
+                          hguided_divisor=hguided_divisor,
+                          ewma_alpha=ewma_alpha)
 
     def pool_stats(self) -> Dict[str, Dict[str, int]]:
         """Counters per pool, keyed ``"<device>[:<min_class>]"`` (the

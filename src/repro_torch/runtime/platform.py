@@ -6,13 +6,18 @@ behind the device-layer interface, mirroring pocl's device kinds:
   ``cuda``    — the H100: CUDA C work-group functions (cuda target)
   ``vector``  — vectorized work-groups in torch (vector target)
   ``basic``   — serial work-item loops in torch (loop target)
+  ``auto``    — the target picked per kernel shape by the autotuner
+                (:mod:`repro_torch.core.autotune`)
 
 ``Platform()`` enumerates the ``torch.cuda`` devices and gives each one a
-device of every driver; the vector and basic devices run on the same
-torch device as the cuda one.  With no CUDA device it raises
+device of every driver; the vector, basic and auto devices run on the
+same torch device as the cuda one.  With no CUDA device it raises
 :class:`DeviceNotFoundError` rather than quietly using the CPU; tests ask
 for the CPU explicitly with ``Platform(torch_device="cpu")``, which has
-vector and basic devices only.
+vector, basic and auto devices.  :meth:`Platform.co_devices` makes fresh
+devices for multi-device co-execution (:mod:`repro_torch.runtime.
+scheduler`), and :class:`ThrottledDevice` models a slower member of a
+lopsided platform.
 
 Device queries (global memory size, max work-group size, …) come from
 ``torch.cuda.get_device_properties`` for a CUDA device.  Every device
@@ -30,15 +35,17 @@ neither the arena chunk nor the tensor exists before first real use.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import threading
+import time
 import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from ..core.api import CompiledKernel, _compile_kernel
+from ..core.api import CompiledKernel, _compile_kernel, to_device
 from ..core.cache import CompilationCache
 from ..core.errors import (InvalidArgError, InvalidBufferError, ReproError,
                            register_error)
@@ -57,7 +64,7 @@ class DeviceNotFoundError(ReproError, RuntimeError):
 @dataclasses.dataclass
 class DeviceInfo:
     name: str
-    driver: str                 # cuda | vector | basic
+    driver: str                 # cuda | vector | basic | auto
     global_mem_size: int
     local_mem_size: int
     max_work_group_size: int
@@ -66,13 +73,15 @@ class DeviceInfo:
     mem_base_addr_align: int = 4
 
 
-_TARGET_OF_DRIVER = {"cuda": "cuda", "vector": "vector", "basic": "loop"}
+_TARGET_OF_DRIVER = {"cuda": "cuda", "vector": "vector", "basic": "loop",
+                     "auto": "auto"}
 
 
 class Device:
     """Device-layer object (cl_device_id analogue): a driver kind on one
     torch device, with a private compilation cache.  The target is the
-    driver's (``cuda``→cuda, ``vector``→vector, ``basic``→loop)."""
+    driver's (``cuda``→cuda, ``vector``→vector, ``basic``→loop,
+    ``auto``→autotuned)."""
 
     def __init__(self, info: DeviceInfo,
                  torch_device: Union[str, torch.device]):
@@ -92,8 +101,11 @@ class Device:
         ``local_size`` on the device's target (or ``opts["target"]``),
         memoized in the device cache.  The ``cuda`` target needs a CUDA
         device; asking for it elsewhere raises
-        :class:`~repro_torch.core.errors.InvalidArgError`."""
+        :class:`~repro_torch.core.errors.InvalidArgError`.  Autotuned
+        kernels key their tuning decisions by the device's name, so
+        co-executing heterogeneous devices measure independently."""
         opts.setdefault("cache", self.compile_cache)
+        opts.setdefault("device_key", self.info.name)
         opts.setdefault("target", self._target)
         if opts["target"] == "cuda" and self.torch_device.type != "cuda":
             raise InvalidArgError(
@@ -124,6 +136,128 @@ class Device:
         return f"<Device {self.info.name} on {self.torch_device}>"
 
 
+class ThrottledDevice(Device):
+    """A device that models a slower — or intermittently busy — member
+    of a lopsided platform (the benchmark and test double for N-device
+    asymmetric co-execution).
+
+    Kernels compiled on a ThrottledDevice run the *real* computation on
+    its torch device (results stay bitwise-identical to any other device)
+    and then charge simulated time: ``seconds_per_group`` for every
+    work-group in the executed range, plus any one-shot delay armed with
+    :meth:`stall` (another tenant briefly hogging the device).  The
+    charged time lands inside the chunk command, so it shows up in the
+    event profiling counters exactly like real execution time — which is
+    what the co-execution throughput model measures.
+
+    With ``window_chunks=True`` (the default) a ``group_range``
+    sub-launch runs the *full-range* kernel over clones of the buffers
+    and copies the chunk's linearized element span back, as the
+    reference does to spare itself a trace per span.  That is exact for
+    kernels whose work-group ``g`` writes exactly its own linearized
+    element span (elementwise kernels); pass ``window_chunks=False`` to
+    run the ``group_range`` sub-launch itself.
+
+    ``coexec_class`` (default ``"<driver>-throttled"``) is the
+    device-class key the scheduler persists split weights under — give
+    fast and slow wrappers different classes so their learned weights
+    never alias.  ``sleep`` is injectable so tests can run simulated
+    platforms in virtual time.
+    """
+
+    def __init__(self, info: DeviceInfo,
+                 torch_device: Union[str, torch.device],
+                 seconds_per_group: float = 0.0,
+                 coexec_class: Optional[str] = None,
+                 sleep: Optional[Callable[[float], None]] = None,
+                 window_chunks: bool = True):
+        super().__init__(info, torch_device)
+        self.seconds_per_group = float(seconds_per_group)
+        self.coexec_class = coexec_class or f"{info.driver}-throttled"
+        self._sleep = sleep if sleep is not None else time.sleep
+        self.window_chunks = bool(window_chunks)
+        self._stall_s = 0.0
+        self._stall_lock = threading.Lock()
+
+    def stall(self, seconds: float) -> None:
+        """Arm a one-shot delay charged to the next kernel execution on
+        this device."""
+        with self._stall_lock:
+            self._stall_s += float(seconds)
+
+    def _consume_stall(self) -> float:
+        with self._stall_lock:
+            s, self._stall_s = self._stall_s, 0.0
+            return s
+
+    def compile(self, build: Callable[[], Function],
+                local_size: Sequence[int], **opts) -> "_ThrottledKernel":
+        inner = super().compile(build, local_size, **opts)
+        return _ThrottledKernel(inner, self,
+                                tuple(int(x) for x in local_size))
+
+
+class _ThrottledKernel:
+    """Launchable proxy that charges its ThrottledDevice's simulated
+    time per executed work-group (plus any armed stall) after running
+    the real kernel."""
+
+    def __init__(self, kernel, device: ThrottledDevice,
+                 local_size: Sequence[int]):
+        self._kernel = kernel
+        self._device = device
+        self._local = tuple(local_size)
+
+    def __getattr__(self, name):
+        return getattr(self._kernel, name)
+
+    def _window(self, buffers, global_size, scalars, lo, hi) -> None:
+        """Execute groups ``[lo, hi)`` by windowing a full-range launch
+        over clones: bitwise-identical to a real ``group_range``
+        sub-launch for kernels whose group ``g`` writes its own
+        linearized element span."""
+        full = {k: v.clone() for k, v in buffers.items()}
+        self._kernel.launch_ndrange(full, global_size, scalars)
+        L = 1
+        for x in self._local:
+            L *= max(1, int(x))
+        for nm, t in buffers.items():
+            t[lo * L:hi * L] = full[nm][lo * L:hi * L]
+
+    def launch_ndrange(self, buffers: Dict[str, torch.Tensor],
+                       global_size: Sequence[int], scalars=None,
+                       group_range=None) -> Dict[str, torch.Tensor]:
+        d = self._device
+        if group_range is not None:
+            lo, hi = int(group_range[0]), int(group_range[1])
+            groups = max(0, hi - lo)
+            if d.window_chunks:
+                self._window(buffers, global_size, scalars, lo, hi)
+            else:
+                self._kernel.launch_ndrange(buffers, global_size, scalars,
+                                            group_range)
+        else:
+            self._kernel.launch_ndrange(buffers, global_size, scalars)
+            gsz = tuple(global_size) + (1,) * (3 - len(global_size))
+            lsz = self._local + (1,) * (3 - len(self._local))
+            groups = 1
+            for g, l in zip(gsz, lsz):
+                groups *= max(1, g // max(1, l))
+        delay = d._consume_stall() + groups * d.seconds_per_group
+        if delay > 0:
+            d._sleep(delay)
+        return buffers
+
+    def __call__(self, buffers, global_size, scalars=None,
+                 group_range=None, device=None) -> Dict[str, torch.Tensor]:
+        """Launch over copies of ``buffers`` (see
+        ``CompiledKernel.__call__``)."""
+        bufs = {k: to_device(v, device) for k, v in buffers.items()}
+        self.launch_ndrange({k: v.reshape(-1) for k, v in bufs.items()},
+                            global_size, scalars, group_range)
+        return bufs
+
+
 def _cuda_info(index: int, driver: str, name: str) -> DeviceInfo:
     props = torch.cuda.get_device_properties(index)
     return DeviceInfo(
@@ -141,6 +275,16 @@ def _cpu_info(driver: str, name: str) -> DeviceInfo:
     return DeviceInfo(name=name, driver=driver, global_mem_size=1 << 30,
                       local_mem_size=1 << 20, max_work_group_size=1024,
                       compute_units=os.cpu_count() or 1)
+
+
+def _device_info(td: torch.device, driver: str, name: str) -> DeviceInfo:
+    return _cuda_info(td.index, driver, name) if td.type == "cuda" \
+        else _cpu_info(driver, name)
+
+
+def _tag(td: torch.device) -> str:
+    """The torch device's part of a device name: ``cuda0``, ``cpu``."""
+    return f"cuda{td.index}" if td.type == "cuda" else td.type
 
 
 class Platform:
@@ -162,25 +306,48 @@ class Platform:
         else:
             tdevs = [torch.device(torch_device)]
         self.devices: List[Device] = []
+        self.torch_devices: List[torch.device] = []
         for td in tdevs:
             if td.type == "cuda":
                 if not torch.cuda.is_available():
                     raise DeviceNotFoundError(f"no CUDA device for {td}")
-                idx = td.index if td.index is not None else 0
-                td = torch.device("cuda", idx)
-                for drv in ("cuda", "vector", "basic"):
-                    self.devices.append(Device(
-                        _cuda_info(idx, drv, f"repro-{drv}-cuda{idx}"), td))
+                td = torch.device("cuda", td.index or 0)
+                drivers = ("cuda", "vector", "basic", "auto")
             else:
-                for drv in ("vector", "basic"):
-                    self.devices.append(Device(
-                        _cpu_info(drv, f"repro-{drv}-{td.type}"), td))
+                drivers = ("vector", "basic", "auto")
+            self.torch_devices.append(td)
+            for drv in drivers:
+                self.devices.append(Device(
+                    _device_info(td, drv, f"repro-{drv}-{_tag(td)}"), td))
+        self._co_ids = itertools.count()
 
     def get_devices(self, driver: Optional[str] = None) -> List[Device]:
         """clGetDeviceIDs: all devices, or those of one driver kind."""
         if driver is None:
             return list(self.devices)
         return [d for d in self.devices if d.info.driver == driver]
+
+    def co_devices(self, n: int, driver: str = "vector") -> List[Device]:
+        """Create ``n`` fresh devices of ``driver`` for multi-device
+        co-execution, on the platform's (first) torch device: on a card,
+        ``co_devices(2, driver="cuda")`` gives two ``cuda`` devices of
+        the one H100.  Each owns its own allocator and compilation
+        cache, and a name no other device of the platform has; the
+        devices are appended to :attr:`devices` so ``cache_stats`` (and
+        a platform-spanning :class:`~repro_torch.runtime.context.
+        Context`) sees them."""
+        td = self.torch_devices[0]
+        if driver not in _TARGET_OF_DRIVER:
+            raise InvalidArgError(f"unknown driver {driver!r}")
+        if driver == "cuda" and td.type != "cuda":
+            raise InvalidArgError(
+                f"driver 'cuda' needs a CUDA device; this platform is on "
+                f"{td}")
+        out = [Device(_device_info(
+            td, driver, f"repro-co-{driver}-{next(self._co_ids)}"), td)
+            for _ in range(n)]
+        self.devices.extend(out)
+        return out
 
     def cache_stats(self) -> Dict[str, Dict[str, int]]:
         """Per-device compilation-cache counters, keyed by device name."""
@@ -408,5 +575,5 @@ def default_platform() -> Platform:
 
 
 __all__ = ["Buffer", "Device", "DeviceInfo", "DeviceNotFoundError",
-           "Platform", "copy_into", "create_buffer", "default_platform",
-           "validate_buffer_request"]
+           "Platform", "ThrottledDevice", "copy_into", "create_buffer",
+           "default_platform", "validate_buffer_request"]

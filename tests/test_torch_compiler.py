@@ -201,6 +201,19 @@ def test_copy_differs_from_original_only_in_imports(rel):
     assert copy == orig
 
 
+def test_tuning_table_is_a_copy():
+    """``core/autotune.py``'s TuningTable and its process-default table
+    are the reference's unchanged, so both packages read and write one
+    table file with the same keys.  (Its AutotunedKernel differs: the
+    port launches in place and its candidates are loop, vector, cuda.)"""
+    import inspect
+    from repro.core import autotune as j_autotune
+    from repro_torch.core import autotune as t_autotune
+    for name in ("TuningTable", "default_table", "set_default_table"):
+        assert inspect.getsource(getattr(t_autotune, name)) == \
+            inspect.getsource(getattr(j_autotune, name)), name
+
+
 def _drop_def(lines, name):
     start = next(i for i, ln in enumerate(lines)
                  if ln.strip().startswith(f"def {name}("))

@@ -12,7 +12,10 @@ integer-valued or dyadic and the kernels are built with
 and the host runtime on the card, bitwise: a buffer's round trip through
 writes, reads and a map, the fused rmsnorm -> residual -> quantize chain
 against the unfused one and the ``vector`` target, and a kernel command's
-event completing only once the card has run the kernel.
+event completing only once the card has run the kernel; co-execution over
+two ``cuda`` devices of the card (bitwise against one launch, each
+chunk's event completing after its kernel) and the autotuner's recorded
+``cuda`` time covering the kernel's CUDA-event time.
 
 Regenerate the snapshots after an intentional emitter change:
 
@@ -219,7 +222,8 @@ def test_pickle_drops_the_library_handle():
 
 def test_cuda_target_on_a_cpu_device_is_refused():
     ctx = Context(platform=Platform(torch_device="cpu"))
-    assert {d.info.driver for d in ctx.devices} == {"vector", "basic"}
+    assert {d.info.driver for d in ctx.devices} == {"vector", "basic",
+                                                    "auto"}
     k = ctx.create_program(builder(CASES["vecadd"][0],
                                    KernelBuilder)).create_kernel()
     k.set_args(A=np.ones(16, np.float32), B=np.ones(16, np.float32),
@@ -499,3 +503,117 @@ def test_kernel_event_completes_after_the_card(runtime_card):
     assert host.numpy().tobytes() == want.astype(np.float32).tobytes()
     q.finish()
     buf.release()
+
+
+# ---------------------------------------------------------------------------
+# co-execution and the autotuner on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_two_cuda_devices_static_split_bitwise(runtime_card):
+    """Two cuda devices of one card, a static split: each chunk a
+    group_range launch of the spin kernel; the merge equals one launch."""
+    ctx, _, spin = runtime_card
+    host = np.arange(SPIN_N, dtype=np.float32) % 64
+    k = spin.create_kernel().set_args(x=host, iters=100)
+    single = ctx.launch(k, (SPIN_N,), (256,))["x"].cpu().numpy()
+    devs = ctx.platform.co_devices(2, driver="cuda")
+    co = ctx.create_co_executor(devs)
+    merged = co.launch(k, (SPIN_N,), (256,), mode="static")["x"].numpy()
+    st = co.last_stats
+    co.finish()
+    assert merged.tobytes() == single.tobytes()
+    assert merged.tobytes() == (host + 100).astype(np.float32).tobytes()
+    assert st.groups_per_device == {d.info.name: SPIN_N // 512
+                                    for d in devs}
+    assert st.bytes_to_host == 2 * SPIN_N * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["steal", "adaptive"])
+def test_two_cuda_devices_self_scheduled_bitwise(runtime_card, mode):
+    """Steal and adaptive mode over two cuda devices of one card: every
+    launch starts from the host array, the chunks cover every group and
+    the merge equals one launch."""
+    ctx, _, spin = runtime_card
+    host = np.arange(SPIN_N, dtype=np.float32) % 64
+    k = spin.create_kernel().set_args(x=host, iters=100)
+    single = ctx.launch(k, (SPIN_N,), (256,))["x"].cpu().numpy()
+    devs = ctx.platform.co_devices(2, driver="cuda")
+    co = ctx.create_co_executor(devs)
+    for _ in range(2):
+        merged = co.launch(k, (SPIN_N,), (256,), mode=mode)["x"].numpy()
+        st = co.last_stats
+        co.finish()
+        assert merged.tobytes() == single.tobytes()
+        reach = 0
+        for lo, hi in sorted((lo, hi) for _, lo, hi in st.chunk_spans):
+            assert lo <= reach, ("groups left out", reach, lo)
+            reach = max(reach, hi)
+        assert reach == st.n_groups
+
+
+@pytest.mark.cuda
+def test_chunk_event_completes_after_the_card(runtime_card):
+    """A co-executed chunk's event completes only once the card has run
+    its kernel: read on another stream from the event's own completion
+    callback, the device copy already holds the chunk's result."""
+    ctx, _, spin = runtime_card
+    devs = ctx.platform.co_devices(2, driver="cuda")
+    co = ctx.create_co_executor(devs)
+    host = np.arange(SPIN_N, dtype=np.float32) % 64
+    x = co.shared_buffer(host, "x")
+    k = spin.create_kernel().set_args(x=x, iters=SPIN_ITERS)
+    seen = []
+
+    class Sink:
+        def on_command(self, ev, deps, queue):
+            if ev.kind == "kernel":
+                ev.add_callback(lambda e, d=queue.device: read(e, d))
+
+    def read(ev, dev):
+        lo, hi = map(int, ev.name.rsplit(":", 1)[1].split("-"))
+        side = torch.cuda.Stream(dev.torch_device)
+        out = torch.empty(SPIN_N, dtype=torch.float32, pin_memory=True)
+        with torch.cuda.stream(side):
+            out.copy_(x.resident_tensor(dev), non_blocking=True)
+        side.synchronize()
+        seen.append(out[lo * 256:hi * 256].numpy().tobytes()
+                    == (host[lo * 256:hi * 256] + SPIN_ITERS).tobytes())
+
+    for q in co.queues.values():
+        q.trace_sink = Sink()
+    merged = co.launch(k, (SPIN_N,), (256,), mode="static")["x"].numpy()
+    co.finish()
+    assert seen == [True, True]
+    assert merged.tobytes() == (host + SPIN_ITERS).tobytes()
+
+
+@pytest.mark.cuda
+def test_autotuned_cuda_time_covers_the_kernel(runtime_card):
+    """The tuner's recorded ``cuda`` time (host clock around a launch and
+    a synchronize) is at least the kernel's time by CUDA events."""
+    from repro_torch.core import AutotunedKernel, TuningTable
+    ctx, _, spin = runtime_card
+    dev = ctx.platform.get_devices("auto")[0]
+    table = TuningTable()
+    build = spin.builder("spin")
+    k = AutotunedKernel(build(), build, (256,), {}, ("cuda",), table,
+                        dev.compile_cache, _compile_kernel,
+                        device_key=dev.info.name)
+    x = torch.zeros(SPIN_N, device=dev.torch_device)
+    k.launch_ndrange({"x": x}, (SPIN_N,), {"iters": SPIN_ITERS})
+    torch.cuda.synchronize()
+    assert torch.equal(x.cpu(), torch.full((SPIN_N,), float(SPIN_ITERS)))
+    (ent,) = table._winners.values()
+    binary = k.kernel_for("cuda")
+    times = []
+    for _ in range(3):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        binary.launch_ndrange({"x": x}, (SPIN_N,), {"iters": SPIN_ITERS})
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) * 1e3)
+    assert ent["target"] == "cuda"
+    assert ent["timings_us"]["cuda"] >= min(times), (ent, times)

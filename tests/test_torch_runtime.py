@@ -808,9 +808,19 @@ def test_launch_path_buffer_class_checks():
     assert ctx.launch(k, (N,), (LSZ,))["x"].tolist() == [2.0] * N
 
 
-def test_co_executor_names_the_roadmap():
-    with pytest.raises(trt.InvalidArgError, match="ROADMAP A item 2"):
-        _ctx().create_co_executor()
+def test_co_executor_runs_over_the_context_devices():
+    """``create_co_executor()`` spans the context's devices and its
+    launch equals a single-device launch bitwise."""
+    ctx = _ctx()
+    co = ctx.create_co_executor()
+    assert co.devices == ctx.devices
+    k = ctx.create_program(bld(k_scale2, TKB)).create_kernel()
+    k.set_args(x=np.arange(N, dtype=np.float32), y=np.zeros(N, np.float32))
+    single = ctx.launch(k, (N,), (LSZ,))
+    merged = co.launch(k, (N,), (LSZ,), mode="static")
+    co.finish()
+    assert merged["y"].numpy().tobytes() == single["y"].numpy().tobytes()
+    assert sum(co.last_stats.groups_per_device.values()) == N // LSZ
 
 
 def test_map_guards_raise_typed_errors():
