@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``src/repro_torch``) on one card.
 
-Drives the port's six paths and checks every result: the kernel
+Drives the port's paths and checks every result: the kernel
 compiler's launch path — KernelBuilder DSL -> IR -> PassManager ->
 WorkGroupPlan -> the hand-written ``cuda`` work-group target -> Context /
 Program / Kernel launch — two serving paths — ``repro_torch.launch.
@@ -17,7 +17,10 @@ buffers, maps through a host bounce, an event-DAG queue whose fusion
 rewrite stitches a chain of kernels into one ``cuda`` launch, and the
 Chrome trace — and co-execution of one NDRange over several devices
 (two ``cuda`` devices of the card, the card and the host) with the
-per-kernel autotuner's ``auto`` device.  Each phase prints one JSON line
+per-kernel autotuner's ``auto`` device — and Vecmathlib in the ``cuda``
+target's kernels (``use_vml=True``, ``csrc/vml.cuh``) and the
+performance-portability scoreboard over the targets at the card's sizes.
+Each phase prints one JSON line
 or more; any mismatch, build error or launch error raises and the script
 exits non-zero.
 
@@ -195,7 +198,30 @@ exits non-zero.
      (f) ROADMAP C.10's input (-1.0 times zeros and NaNs) over (b)'s and
      (d)'s pairs, each element equal to the single launch of the device
      that ran it;
- 15. the kernels line, then the card's name and power limit, then the
+ 15. vml (main path): a kernel ``y = op(x)`` for each op Vecmathlib
+     serves (exp, log, sin, cos, tanh, erf, sqrt, rsqrt), built with
+     ``use_vml=True``, launched through ``Context.launch`` on the card
+     over 1<<24 float32 from ``vml_inputs`` (±0, ±inf, NaN, denormals,
+     the clamp thresholds, every quadrant of sin and cos, |x| > 88 for
+     exp, log-uniform magnitudes); the ``cuda`` kernel must equal the
+     ``vector`` target with ``use_vml=True`` on the card bitwise, NaNs
+     included; the largest ulp distance from the same op's libm kernel
+     (``use_vml=False``) and from torch's op on the card, over every
+     input and over ``tests/test_vml.py``'s ranges where the result is at
+     least 1e-6 in magnitude; then the vml kernel,
+     the libm kernel and torch's op (the library call) timed like phase
+     5, beside the bytes bound (8 B an element);
+ 16. the performance-portability scoreboard
+     (``repro_torch.suite.scoreboard``): the ``card`` shape set (phase
+     5's sizes) over ``vector``, ``cuda``, ``coexec2`` (two ``cuda``
+     devices of the card) and ``auto``, every tuning configuration, and
+     the ``ci`` set over ``loop``, ``vector`` and ``cuda`` with two
+     configurations a space and one timed launch; the peaks calibrated on
+     the card beside the data sheet's, the markdown matrix, each cell's
+     device and wall time and both fractions; the ``bitwise`` and
+     ``winner_beats_worst`` gates must hold; the reports land in
+     ``build/repro_torch/phase16_scoreboard_{card,ci}.{json,md}``;
+ 17. the kernels line, then the card's name and power limit, then the
      result line.
 
 Launch counts are set to 0 just before each main-path phase and read
@@ -364,6 +390,26 @@ HOSTCO_N, HOSTCO_LAUNCHES = 1 << 24, 5
 # its share of the groups in each of the fresh executor's two launches
 WARM_CPU_WEIGHT, WARM_CPU_GROUPS = 0.2, 0.5
 C10_N = 1 << 20
+# phase 15: vml over VML_N float32 in work-groups of VML_LSZ; the FP32
+# operations an element takes in each function of csrc/vml.cuh (clamps,
+# compares and selects counted as one each), for its bound
+VML_N, VML_LSZ = 1 << 24, 256
+VML_FLOPS = {"exp": 27, "log": 26, "sin": 21, "cos": 21, "tanh": 33,
+             "erf": 45, "sqrt": 13, "rsqrt": 19}
+# tests/test_vml.py's ranges, where vml is held to libm's accuracy
+VML_RANGES = {"exp": (-80.0, 80.0), "log": (1e-30, 1e30),
+              "sin": (-50.0, 50.0), "cos": (-50.0, 50.0),
+              "tanh": (-20.0, 20.0), "erf": (-5.0, 5.0), "sqrt": (0.0, 1e30),
+              "rsqrt": (1e-30, 1e30)}
+VML_SOURCE = "src/repro_torch/csrc/vml.cuh"
+# phase 16: the scoreboard at the card set (every configuration:
+# SB_REPEATS timed launches on the card, then one through Context.launch;
+# a cuda kernel's first launch, which loads its module, and the auto
+# device's, which tunes, are warm-ups) and at the ci set (two
+# configurations a space, one timed launch of each kind: the loop target
+# steps work-items from the host, seconds a launch)
+SB_REPEATS = 2
+SB_LIMIT_S = 240.0
 
 
 def emit(phase, **fields):
@@ -1615,12 +1661,13 @@ def coexec_two_devices(torch, np, time_ms, ctx, card_dev, real_runs, drv,
     across launches and each launch's outputs in fresh ones (see
     ``output_fill``)."""
     from repro_torch.core import TuningTable
+    from repro_torch.suite.scoreboard import expected_outputs
     devs = ctx.platform.co_devices(2, driver=drv)
     co = ctx.create_co_executor(devs, tuning_table=TuningTable())
     for idx in COEX_REAL:
         name, sk, shape, params, prog = real_runs[idx]
         inputs = sk.make_inputs(shape, params)
-        expected = real_expected(np, name, sk, shape, params, inputs)
+        expected = expected_outputs(sk, inputs, shape, params)
         gsz, lsz = sk.launch_dims(shape, params)
         k = prog.create_kernel().set_args(**inputs)
         sync()
@@ -1949,17 +1996,161 @@ def coexec_phase(torch, np, time_ms, ctx, card_dev, vec_dev, host_prog,
                 ("card_and_host", hctx, hctx.create_co_executor(pair))])
 
 
-def real_expected(np, name, sk, shape, params, inputs):
-    """The oracle's outputs of a phase-5 run.  GEMM's come from a float64
-    product: every partial sum of its integer-valued operands is an
-    integer below 2**24, so that product is exact and equals the
-    oracle's ordered float32 sum bitwise."""
-    if name != "gemm":
-        return sk.oracle(inputs, shape, params)
-    m, n, kk = shape["m"], shape["n"], shape["k"]
-    return {"C": (inputs["A"].reshape(m, kk).astype(np.float64)
-                  @ inputs["B"].reshape(kk, n).astype(np.float64))
-            .astype(np.float32).reshape(-1)}
+# ---------------------------------------------------------------------------
+# phase 15: vml on the card
+# ---------------------------------------------------------------------------
+
+def vml_programs(ctx):
+    """{op: (use_vml=True program, use_vml=False program)} of the kernel
+    ``y = op(x)`` for each op Vecmathlib serves."""
+    import functools
+    from repro_torch.core import KernelBuilder
+    from repro_torch.core.cases import VML_OPS, build_unary
+    return {op: tuple(ctx.create_program(
+        functools.partial(build_unary, KernelBuilder, op),
+        use_vml=v).build() for v in (True, False)) for op in VML_OPS}
+
+
+def ulp_distance(torch, a, b):
+    """Elementwise distance of two float32 tensors in units in the last
+    place (their bit patterns on one ordered integer line); 0 where
+    either is NaN."""
+    def ordered(t):
+        i = t.view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    nan = torch.isnan(a) | torch.isnan(b)
+    return torch.where(nan, torch.zeros_like(a, dtype=torch.int64),
+                       (ordered(a) - ordered(b)).abs())
+
+
+def vml_phase(torch, np, time_ms, ctx, cuda_dev, vec_dev, vml_progs,
+              reset_counts):
+    """Phase 15 (main path): each op's use_vml=True kernel through
+    Context.launch on the card, held bitwise against the vector target
+    with use_vml=True there, its ulp distance from libm's kernel and
+    torch's op, and the three timed.  Returns the kernels line's
+    entries."""
+    from repro_torch.core.cases import vml_inputs
+    dev = cuda_dev.torch_device
+    x = vml_inputs(np.random.default_rng(15), VML_N)
+    zeros = np.zeros(VML_N, np.float32)
+    kernels = {op: tuple(p.create_kernel().set_args(x=x, y=zeros)
+                         for p in pair) for op, pair in vml_progs.items()}
+    reset_counts()
+    outs = {op: ctx.launch(kv, (VML_N,), (VML_LSZ,))["y"]
+            for op, (kv, _) in kernels.items()}
+    torch.cuda.synchronize()
+    launches = {op: kv.bind(cuda_dev, (VML_LSZ,)).prog.launches
+                for op, (kv, _) in kernels.items()}
+    xd = torch.tensor(x, device=dev)
+    entries = []
+    for op, (kv, kl) in kernels.items():
+        assert launches[op] > 0, (op, "not launched on the main path")
+        got = outs[op]
+        plain = ctx.launch(kv, (VML_N,), (VML_LSZ,), device=vec_dev)["y"]
+        bad = got.view(torch.int32) != plain.view(torch.int32)
+        n_bad = int(bad.sum())
+        assert n_bad == 0, (op, "cuda vs vector, use_vml=True", n_bad,
+                            x[bad.cpu().numpy()][:4].tolist())
+        libm = ctx.launch(kl, (VML_N,), (VML_LSZ,))["y"]
+        lib_fn = torch.rsqrt if op == "rsqrt" else getattr(torch, op)
+        lo, hi = VML_RANGES[op]
+        ulps = {}
+        for other, want in (("libm", libm), ("torch", lib_fn(xd))):
+            d = ulp_distance(torch, got, want)
+            # relative accuracy: where the result is at least 1e-6 (near
+            # zero vml is held to an absolute tolerance instead)
+            inside = (xd >= lo) & (xd <= hi) & (want.abs() >= 1e-6)
+            ulps[other] = {"max_ulp": int(d.max()),
+                           "max_ulp_in_range": int(d[inside].max()),
+                           "nan_differs": int((torch.isnan(got)
+                                               != torch.isnan(want)).sum())}
+        bufs = {"x": xd, "y": torch.zeros(VML_N, device=dev)}
+        bv = kv.bind(cuda_dev, (VML_LSZ,))
+        bl = kl.bind(cuda_dev, (VML_LSZ,))
+        pv = kv.bind(vec_dev, (VML_LSZ,))
+        ms = time_ms(lambda: bv.launch_ndrange(bufs, (VML_N,)))
+        libm_ms = time_ms(lambda: bl.launch_ndrange(bufs, (VML_N,)))
+        lib_ms = time_ms(lambda: lib_fn(xd))
+        plain_ms = time_ms(lambda: pv.launch_ndrange(bufs, (VML_N,)),
+                           reps=3, warmup=1)
+        bms, by = bound(VML_FLOPS[op] * float(VML_N), 8.0 * VML_N)
+        emit(15, op=op, n=VML_N, launches=launches[op], bitwise=True,
+             ulp_vs=ulps, ms=ms, libm_ms=libm_ms, torch_ms=lib_ms,
+             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+             fraction_of_bound=bms / ms)
+        entries.append({"name": f"cuda_target/vml_{op}", "source": VML_SOURCE,
+                        "launches": launches[op], "max_abs_err": 0.0,
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                        "bound_by": by, "library_ms": lib_ms})
+        del got, plain, libm, bufs
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the scoreboard
+# ---------------------------------------------------------------------------
+
+def scoreboards(ctx):
+    """The card-set and ci-set Scoreboards over one fresh tuning table
+    (``build/repro_torch/phase16_tuning.json``); the ci board reuses the
+    card board's vector and cuda peaks."""
+    from repro_torch.core import TuningTable
+    from repro_torch.core.nvcc import BUILD_DIR
+    from repro_torch.suite import Scoreboard
+    path = BUILD_DIR / "phase16_tuning.json"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if path.exists():
+        path.unlink()
+    table = TuningTable(str(path))
+    card = Scoreboard(ctx=ctx, table=table, shape_set="card", warmup=0,
+                      repeats=SB_REPEATS)
+    ci = Scoreboard(ctx=ctx, table=table, shape_set="ci",
+                    targets=("loop", "vector", "cuda"), warmup=0, repeats=1,
+                    max_configs=2, include_coexec=False, include_auto=False)
+    return card, ci
+
+
+def scoreboard_phase(card, ci):
+    """Phase 16: both boards, their gates, reports and summaries."""
+    from repro_torch.core.nvcc import BUILD_DIR
+    from repro_torch.launch.scoreboard import summary_lines
+    from repro_torch.suite import check_gates, render_markdown
+    t0 = time.perf_counter()
+    for name, board in (("card", card), ("ci", ci)):
+        t1 = time.perf_counter()
+        if board is ci:     # peaks calibrated on this card already
+            ci.peaks.update({t: card.peaks[t] for t in ("vector", "cuda")})
+        report = board.run()
+        report["gates"] = check_gates(report, min_fraction=0.0)
+        stem = BUILD_DIR / f"phase16_scoreboard_{name}"
+        stem.with_suffix(".json").write_text(
+            json.dumps(report, indent=1, default=float))
+        md = render_markdown(report)
+        stem.with_suffix(".md").write_text(md)
+        print(md, flush=True)
+        print("\n".join(summary_lines(report)), flush=True)
+        gates = report["gates"]
+        emit(16, shape_set=name, seconds=time.perf_counter() - t1,
+             targets=report["targets"], absent=report.get("absent"),
+             peaks=report["peaks"], datasheet=report["datasheet"],
+             calibration=report["calibration"],
+             above_roofline=report["above_roofline"], gates=gates,
+             cells={f"{k}/{t}": {"config": c["config"],
+                                 "time_us": c["time_us"],
+                                 "wall_us": c["wall_us"],
+                                 "fraction": c["roofline"]["fraction"],
+                                 "fraction_datasheet":
+                                     c["fraction_datasheet"],
+                                 **({"chosen": c["chosen_target"]}
+                                    if "chosen_target" in c else {})}
+                    for k, ent in report["kernels"].items()
+                    for t, c in ent["cells"].items()})
+        assert gates["bitwise"], (name, gates["bitwise_failures"])
+        assert gates["winner_beats_worst"], (name, gates["winner_failures"])
+    seconds = time.perf_counter() - t0
+    emit(16, part="done", seconds=seconds, limit_s=SB_LIMIT_S)
+    assert seconds < SB_LIMIT_S, ("scoreboard phase", seconds)
 
 
 def main() -> int:
@@ -1983,6 +2174,7 @@ def main() -> int:
     from repro_torch.kernels import KERNELS
     from repro_torch.runtime import Context
     from repro_torch.suite import SUITE
+    from repro_torch.suite.scoreboard import expected_outputs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2022,6 +2214,8 @@ def main() -> int:
                           ctx.create_program(sk.build(shape, params))))
     warm_queue, warm_bufs, fused_spec = warm_fused_chain(ctx, cuda_dev,
                                                          chain_prog)
+    vml_progs = vml_programs(ctx)
+    sb_card, sb_ci = scoreboards(ctx)
     binaries = [dot_prog.create_kernel().bind(cuda_dev, (QS_LSZ,))]
     binaries += [r[3].create_kernel().bind(cuda_dev, r[6]) for r in case_runs]
     for runs in (full_runs, real_runs, auto_runs):
@@ -2035,6 +2229,9 @@ def main() -> int:
     binaries.append(fused_spec.program.binary_for(
         fused_spec.kernel_name, (CHAIN_LSZ,), device=cuda_dev))
     binaries.append(lops_prog.create_kernel().bind(cuda_dev, (LOPS_LSZ,)))
+    binaries += [p.create_kernel().bind(cuda_dev, (VML_LSZ,))
+                 for pair in vml_progs.values() for p in pair]
+    binaries += sb_card.cuda_binaries() + sb_ci.cuda_binaries()
     progs = {b.prog.digest: b.prog for b in binaries}
     t0 = time.perf_counter()
     secs = build_parallel([p.nvcc_job() for p in progs.values()]
@@ -2131,7 +2328,7 @@ def main() -> int:
     for name, sk, shape, params, prog in real_runs:
         t_in = time.perf_counter()
         inputs = sk.make_inputs(shape, params)
-        expected = real_expected(np, name, sk, shape, params, inputs)
+        expected = expected_outputs(sk, inputs, shape, params)
         k = prog.create_kernel()
         k.set_args(**inputs)
         gsz, lsz = sk.launch_dims(shape, params)
@@ -2269,7 +2466,17 @@ def main() -> int:
                  real_runs, auto_runs)
     emit(14, part="done", seconds=time.perf_counter() - t14)
 
-    # -- 15. kernels line, card, result --------------------------------------------
+    # -- 15. vml on the card (main path) ---------------------------------------
+    t15 = time.perf_counter()
+    entries += vml_phase(torch, np, time_ms, ctx, cuda_dev, vec_dev,
+                         vml_progs, reset_counts)
+    emit(15, part="done", seconds=time.perf_counter() - t15)
+    torch.cuda.empty_cache()
+
+    # -- 16. the performance-portability scoreboard -------------------------------
+    scoreboard_phase(sb_card, sb_ci)
+
+    # -- 17. kernels line, card, result --------------------------------------------
     print(json.dumps({"kernels": [
         {"name": e["name"], "route": "cuda",
          "source": e.get("source", KERNEL_SOURCE),

@@ -184,4 +184,47 @@ CASES = {
                   (8,), (8,), None),
 }
 
-__all__ = ["CASES", "builder", "build_dot_product"]
+# the elemental ops Vecmathlib serves when a program is built with
+# use_vml=True (paper §5)
+VML_OPS = ("exp", "log", "sin", "cos", "tanh", "erf", "sqrt", "rsqrt")
+
+
+def build_unary(KB, op):
+    """``y[g] = op(x[g])``: one elemental op per work-item, the kernel
+    that drives a target's ``use_vml=True`` path."""
+    b = KB(f"unary_{op}")
+    x = b.arg_buffer("x", "float32")
+    y = b.arg_buffer("y", "float32")
+    g = b.global_id(0)
+    y[g] = getattr(b, op)(x[g])
+    return b.finish()
+
+
+_VML_SPECIAL = np.array(
+    [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45, 1e-39, -1e-39,
+     1.1754942e-38, 1.17549435e-38, 3.4028235e38, -3.4028235e38,
+     88.72, 88.7, -87.3, -87.2, 200.0, -200.0, 9.0, -9.0, 1.0, -1.0, 0.5,
+     -0.7853982, -0.7853981, -2.3561945, -3.9269908, -5.497787,
+     3e9, -3e9, 1e10, -1e10], np.float32)
+
+
+def vml_inputs(rng, n: int) -> np.ndarray:
+    """``n`` float32 inputs over the vml functions' domains: ±0, ±inf,
+    NaN, denormals and the clamp thresholds first, then equal shares of
+    [-50, 50] (every quadrant of sin and cos, negative ones included),
+    20 · N(0, 1), ±[88, 200] (where exp saturates), log-uniform positive
+    values over [1e-37, 1e37] (log, sqrt, rsqrt) and their negatives."""
+    k = len(_VML_SPECIAL)
+    m = max(n - k, 0)
+    q = -(-m // 6)
+    mag = np.exp(rng.uniform(np.log(1e-37), np.log(1e37), 2 * q))
+    parts = [_VML_SPECIAL,
+             rng.uniform(-50.0, 50.0, q),
+             rng.standard_normal(q) * 20.0,
+             rng.uniform(88.0, 200.0, q) * rng.choice([-1.0, 1.0], q),
+             mag, -mag[:q]]
+    return np.concatenate(parts).astype(np.float32)[:n]
+
+
+__all__ = ["CASES", "VML_OPS", "builder", "build_dot_product",
+           "build_unary", "vml_inputs"]

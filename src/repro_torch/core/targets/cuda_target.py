@@ -31,6 +31,10 @@ the emitted kernel:
   arrays exceed the device's opt-in limit is refused with a typed error;
 * takes scalar arguments as kernel parameters, so a new value needs no
   rebuild (the Pallas target embedded them as literals);
+* with ``use_vml=True``, calls Vecmathlib's functions in
+  ``csrc/vml.cuh`` for exp, log, sin, cos, tanh, erf, sqrt and rsqrt, as
+  the reference's Pallas kernel computed ``repro.vml`` in its body;
+  without it, CUDA's libm;
 * reproduces the reference's clamped loads, dropped stores and integer
   and conversion rules through ``csrc/wg_runtime.cuh``, and is built with
   ``-fmad=false`` so that each IR operation rounds once, as the IR says.
@@ -48,7 +52,7 @@ scan, the histogram and SpMV, and FP32 CUDA-core FMAs for GEMM.
 Tensor cores, ``cp.async`` and TMA are later work.
 
 Each library is cached under ``build/repro_torch/`` by the SHA-256 of its
-source, the runtime header and the compiler flags, and is built at first
+source, the headers and the compiler flags, and is built at first
 launch; :func:`build_many` builds many at once, one ``nvcc`` each.
 ``tests/test_torch_cuda_emit.py`` runs the emitted source on the CPU
 against a stand-in for the CUDA runtime.
@@ -72,10 +76,13 @@ from ..ir import CondBranch, Jump, Return, Value
 from ..nvcc import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, NvccJob, build_parallel
 from .cuda_mapping import (CudaMapping, barrier_kind, literal_int, map_plan,
                            operand_range)
-from .vector import WGProgram
+from .vector import _VML_OPS, WGProgram
 
 MAX_THREADS = 1024          # CUDA's limit on threads per block
 _STATIC_SMEM = 48 * 1024    # above this, dynamic shared memory needs opt-in
+# the headers an emitted source may include; each library's digest hashes
+# them all, so an edit to either rebuilds it
+HEADERS = ("wg_runtime.cuh", "vml.cuh")
 
 
 @register_error
@@ -187,9 +194,12 @@ def _binexpr(op: str, a: str, b: str, t: str, int_table=None) -> str:
     return table[op].format(a=a, b=b)
 
 
-def _unexpr(op: str, a: str, t: str) -> Tuple[str, str]:
+def _unexpr(op: str, a: str, t: str, use_vml: bool = False
+            ) -> Tuple[str, str]:
     """(C expression, its dtype) of unary ``op`` on ``a`` of dtype ``t``;
-    float math of an integer computes in float32, as jnp does."""
+    float math of an integer computes in float32, as jnp does.  With
+    ``use_vml``, the ops Vecmathlib serves call ``csrc/vml.cuh``'s
+    ``vml_<op>`` in place of CUDA's libm."""
     if op == "not":
         if t == "float32":
             raise InvalidArgError("cuda target: no 'not' on float32")
@@ -200,6 +210,8 @@ def _unexpr(op: str, a: str, t: str) -> Tuple[str, str]:
         raise InvalidArgError(f"cuda target: no {op!r} on bool")
     if t == "int32":
         a, t = f"((float){a})", "float32"
+    if use_vml and op in _VML_OPS:
+        return f"vml_{_VML_OPS[op]}({a})", t
     return _FLOAT_UN[op].format(a=a), t
 
 
@@ -293,7 +305,7 @@ class _Emitter:
             expr = _binexpr(op, _cvt(ea, ta, t), _cvt(eb, tb, t), t, table)
         elif op in ir.UNOPS:
             e, t = self.opnd(ins.operands[0])
-            expr, et = _unexpr(op, e, t)
+            expr, et = _unexpr(op, e, t, self.prog.use_vml)
             expr = _cvt(expr, et, rt)
         elif op == "select":
             (ec, tc), (ea, ta), (eb, tb) = (self.opnd(o)
@@ -436,6 +448,7 @@ class _Emitter:
             f"__syncthreads()",
             f"// emitted by repro_torch/core/targets/cuda_target.py",
             '#include "wg_runtime.cuh"',
+            *(['#include "vml.cuh"'] if prog.use_vml else []),
             "",
             f"extern \"C\" __global__ void __launch_bounds__({T}) "
             f"wg_kernel({kparams}) {{",
@@ -588,7 +601,8 @@ class CudaWGProgram(WGProgram):
         self.local_names = [a.name for a in self.wg.fn.buffer_args
                         if a.space == ir.LOCAL]
         h = hashlib.sha256(self.source.encode())
-        h.update((CSRC_DIR / "wg_runtime.cuh").read_bytes())
+        for header in HEADERS:
+            h.update((CSRC_DIR / header).read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         self.digest = h.hexdigest()
         self.launches = 0
@@ -611,7 +625,9 @@ class CudaWGProgram(WGProgram):
         return NvccJob(f"{self.wg.fn.name} ({self.digest[:12]})",
                        self.source, _lib_path(self.digest))
 
-    def _load(self):
+    def load(self):
+        """The library's launcher, loaded with ``ctypes`` (and built
+        first if it is not in ``build/repro_torch/`` yet)."""
         if self._fn is None:
             path = _lib_path(self.digest)
             if not path.exists():
@@ -663,7 +679,7 @@ class CudaWGProgram(WGProgram):
             return buffers
         if groups >= 1 << 31:
             raise InvalidArgError(f"{groups} work-groups exceed the grid")
-        fn = self._load()
+        fn = self.load()
         args: List[object] = []
         for a in self.sig.globals:
             t = buffers[a.name]

@@ -151,6 +151,10 @@ _UN = {
     "ceil": torch.ceil, "rint": torch.round,   # half to even, as jnp.round
 }
 
+# ops served by Vecmathlib (§5) when use_vml=True
+_VML_OPS = {"exp": "exp", "log": "log", "sin": "sin", "cos": "cos",
+            "tanh": "tanh", "erf": "erf", "sqrt": "sqrt", "rsqrt": "rsqrt"}
+
 
 # ---------------------------------------------------------------------------
 # Predicates: None means "all lanes true"
@@ -398,6 +402,9 @@ class LaneExec:
             self.env[ins.result.id] = r
 
     def _unop(self, op: str, a):
+        if self.prog.use_vml and op in _VML_OPS:
+            from ... import vml
+            return getattr(vml, _VML_OPS[op])(a)
         if a.dtype != torch.bool and not a.dtype.is_floating_point \
                 and op not in ("neg", "not", "abs"):
             # jnp computes float math of an integer in float32
@@ -611,10 +618,6 @@ class WGProgram:
                  local_size: Sequence[int],
                  horizontal: bool = True, merge_uniform: bool = True,
                  use_vml: bool = False):
-        if use_vml:
-            raise InvalidArgError(
-                "use_vml=True needs the vml module, which the torch port "
-                "does not have yet")
         self.lsz = tuple(int(x) for x in local_size) \
             + (1,) * (3 - len(local_size))
         self.L = int(np.prod(self.lsz))

@@ -1,6 +1,12 @@
-"""Vecmathlib (paper §5) on torch tensors: the part of ``repro.vml`` the
-serving path calls.  The rest of vml waits (ROADMAP A.6)."""
+"""Vecmathlib (paper §5) on torch tensors: vectorized, fusible elemental
+math for the kernel compiler's built-in library (``use_vml=True``) and
+the LM stack's activations, with torch's own functions as its oracles
+(:mod:`.ref`)."""
 
-from .core import exp, fabs, rsqrt, sigmoid, silu
+from .core import (cos, copysign, erf, exp, fabs, gelu_tanh, log, reciprocal,
+                   rsqrt, sigmoid, signbit, silu, sin, sqrt, tanh)
+from . import ref
 
-__all__ = ["exp", "fabs", "rsqrt", "sigmoid", "silu"]
+__all__ = ["exp", "log", "sin", "cos", "tanh", "erf", "sqrt", "rsqrt",
+           "fabs", "copysign", "signbit", "reciprocal", "sigmoid",
+           "gelu_tanh", "silu", "ref"]

@@ -47,6 +47,11 @@ inline float __int_as_float(int i) {
   std::memcpy(&f, &i, sizeof f);
   return f;
 }
+inline int __float_as_int(float f) {
+  int i;
+  std::memcpy(&i, &f, sizeof i);
+  return i;
+}
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }

@@ -9,8 +9,9 @@ Every compiler case (both horizontal settings), every suite kernel at its
 mapping's other choices work (256-work-item and 2-D groups, a loop with
 a barrier in both schedules, a race across an implicit barrier, LOCAL
 accesses with and without proven bounds), and the rmsnorm -> residual ->
-quantize chain as the queue's fusion rewrite stitches it, are held
-bitwise against the
+quantize chain as the queue's fusion rewrite stitches it, and a kernel
+``y = op(x)`` for each op Vecmathlib serves built with ``use_vml=True``
+(its source includes ``csrc/vml.cuh``), are held bitwise against the
 port's ``vector`` target on the same inputs: the arithmetic is IEEE single precision with no contraction on
 both sides (``-ffp-contract=off``, as ``-fmad=false`` on the card).  A
 barrier deleted from the source must fail the same check.
@@ -19,6 +20,7 @@ Skips without ``g++``.  The builds run in parallel, one ``g++`` each.
 """
 
 import ctypes
+import functools
 import os
 import re
 import shutil
@@ -31,7 +33,8 @@ import torch
 
 from repro_torch.core import KernelBuilder
 from repro_torch.core.api import _compile_kernel
-from repro_torch.core.cases import CASES, builder
+from repro_torch.core.cases import (CASES, VML_OPS, build_unary, builder,
+                                    vml_inputs)
 from repro_torch.core.examples import (build_quantize, build_reduce2,
                                        build_residual_add, build_rmsnorm_ew)
 from repro_torch.core.fusion import ChainEdge, stitch_functions
@@ -406,3 +409,44 @@ def test_a_deleted_barrier_fails(built, name):
     same = rc == 0 and all(got[n].tobytes() == w.tobytes()
                            for n, w in want.items())
     assert not same, f"{name} still matches with a barrier deleted"
+
+
+# ---------------------------------------------------------------------------
+# use_vml=True: the kernels call csrc/vml.cuh
+# ---------------------------------------------------------------------------
+
+VML_N, VML_LSZ = 2048, 64
+
+
+def _unary(op):
+    return functools.partial(build_unary, KernelBuilder, op)
+
+
+@pytest.fixture(scope="module")
+def built_vml(tmp_path_factory):
+    if GXX is None:
+        pytest.skip("needs g++")
+    out = tmp_path_factory.mktemp("cuda_emit_vml")
+    progs = {op: _compile_kernel(_unary(op), (VML_LSZ,), target="cuda",
+                                 use_vml=True, cache=False).prog
+             for op in VML_OPS}
+    return progs, build_all({op: p.source for op, p in progs.items()},
+                            str(out))
+
+
+@pytest.mark.parametrize("op", VML_OPS)
+def test_vml_kernel_matches_vector_target(built_vml, op):
+    """Each op's use_vml=True source, built by g++ with vml.cuh, against
+    the port's vector target with use_vml=True: bitwise, NaNs included."""
+    progs, libs = built_vml
+    assert f"vml_{op}(" in progs[op].source
+    bufs = {"x": vml_inputs(np.random.default_rng(VML_OPS.index(op)),
+                            VML_N),
+            "y": np.zeros(VML_N, np.float32)}
+    rc, got = launch_standin(libs[op], progs[op], bufs, (VML_N,), None)
+    assert rc == 0
+    k = _compile_kernel(_unary(op), (VML_LSZ,), target="vector",
+                        use_vml=True)
+    want = k({n: v.copy() for n, v in bufs.items()}, (VML_N,))["y"].numpy()
+    assert got["y"].tobytes() == want.tobytes(), \
+        (op, bufs["x"][got["y"].view(np.int32) != want.view(np.int32)][:4])

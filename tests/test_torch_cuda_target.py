@@ -3,12 +3,14 @@
 On the CPU: the emitted CUDA source (golden snapshots, direct region
 control flow and a ``__syncthreads()`` only where a barrier orders
 memory, zeroed ``__shared__`` memory, every compiler case and suite
-kernel emits) and the typed refusals; ``tests/test_torch_cuda_emit.py``
+kernel emits, ``use_vml=True`` calling ``csrc/vml.cuh`` and the digest
+tracking that header) and the typed refusals; ``tests/test_torch_cuda_emit.py``
 runs the emitted source on the CPU.  On a card (marker ``cuda``,
 skipped elsewhere): the kernels against the torch ``vector`` target, its
 plain version, on the same device — bitwise, since the suite's data is
 integer-valued or dyadic and the kernels are built with
 ``-fmad=false``, and at ``rtol=1e-5, atol=1e-6`` on random-normal data;
+the ``use_vml=True`` kernels bitwise over every vml function's domain;
 and the host runtime on the card, bitwise: a buffer's round trip through
 writes, reads and a map, the fused rmsnorm -> residual -> quantize chain
 against the unfused one and the ``vector`` target, and a kernel command's
@@ -23,6 +25,7 @@ Regenerate the snapshots after an intentional emitter change:
       tests/test_torch_cuda_target.py
 """
 
+import functools
 import os
 import pickle
 
@@ -32,7 +35,8 @@ import torch
 
 from repro_torch.core import KernelBuilder, InvalidArgError
 from repro_torch.core.api import _compile_kernel
-from repro_torch.core.cases import CASES, builder
+from repro_torch.core.cases import (CASES, VML_OPS, build_unary, builder,
+                                    vml_inputs)
 from repro_torch.core.errors import BuildError
 from repro_torch.core.examples import build_condbar, build_dct, build_reduce2
 from repro_torch.core import nvcc
@@ -272,6 +276,41 @@ def test_missing_nvcc_is_a_build_error(monkeypatch, tmp_path):
         build_many([cuda_program(build_dct, (8,))])
 
 
+def _unary(op):
+    return functools.partial(build_unary, KernelBuilder, op)
+
+
+@pytest.mark.parametrize("op", VML_OPS)
+def test_use_vml_calls_vml_cuh(op):
+    libm = cuda_program(_unary(op), (64,))
+    vml = _compile_kernel(_unary(op), (64,), target="cuda", use_vml=True,
+                          cache=False).prog
+    assert '#include "vml.cuh"' in vml.source and f"vml_{op}(" in vml.source
+    assert "vml" not in libm.source
+    assert vml.source.replace('#include "vml.cuh"\n', "").replace(
+        f"vml_{op}(", "") == libm.source.replace(
+        cuda_target._FLOAT_UN[op].split("{")[0], "")
+    assert vml.digest != libm.digest
+
+
+def test_digest_tracks_the_vml_header(monkeypatch, tmp_path):
+    """An edit to csrc/vml.cuh must change every library's digest, or the
+    build cache under build/repro_torch/ serves a stale binary."""
+    for header in cuda_target.HEADERS:
+        (tmp_path / header).write_bytes(
+            (cuda_target.CSRC_DIR / header).read_bytes())
+    monkeypatch.setattr(cuda_target, "CSRC_DIR", tmp_path)
+    before = {vml: _compile_kernel(_unary("sin"), (64,), target="cuda",
+                                   use_vml=vml, cache=False).prog.digest
+              for vml in (False, True)}
+    with open(tmp_path / "vml.cuh", "a") as f:
+        f.write("// edited\n")
+    for vml in (False, True):
+        again = _compile_kernel(_unary("sin"), (64,), target="cuda",
+                                use_vml=vml, cache=False).prog
+        assert again.digest != before[vml]
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -292,15 +331,19 @@ def card():
     for name, build, lsz, hz in KERNELS:
         prog = ctx.create_program(build, horizontal=hz)
         progs.append(prog.create_kernel().bind(dev, lsz).prog)
+    for op in VML_OPS:
+        prog = ctx.create_program(_unary(op), use_vml=True)
+        progs.append(prog.create_kernel().bind(dev, (VML_LSZ,)).prog)
     build_many(progs)
     return ctx
 
 
 def _launch_both(ctx, build, bufs, gsz, lsz, scalars=None, hz=True,
-                 group_range=None):
+                 group_range=None, use_vml=False):
     cuda_dev = ctx.platform.get_devices("cuda")[0]
     vec_dev = ctx.platform.get_devices("vector")[0]
-    k = ctx.create_program(build, horizontal=hz).create_kernel()
+    k = ctx.create_program(build, horizontal=hz,
+                           use_vml=use_vml).create_kernel()
     k.set_args(**bufs, **(scalars or {}))
     binary = k.bind(cuda_dev, lsz)
     before = binary.prog.launches
@@ -330,6 +373,22 @@ def test_cases_on_the_card_match_vector_target(card, case, hz):
     for n in bufs:
         np.testing.assert_allclose(got[n], ref[n], rtol=1e-5, atol=1e-6,
                                    err_msg=f"{case} hz={hz} {n}")
+
+
+VML_N, VML_LSZ = 1 << 20, 256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", VML_OPS)
+def test_use_vml_on_the_card_bitwise(card, op):
+    """The cuda target's vml.cuh against the torch vector target with
+    use_vml=True on the same card: bitwise, NaNs included."""
+    x = vml_inputs(np.random.default_rng(VML_OPS.index(op)), VML_N)
+    got, ref = _launch_both(card, _unary(op), {"x": x, "y": np.zeros_like(x)},
+                            (VML_N,), (VML_LSZ,), use_vml=True)
+    bad = got["y"].view(np.int32) != ref["y"].view(np.int32)
+    assert not bad.any(), (op, int(bad.sum()), x[bad][:4], got["y"][bad][:4],
+                           ref["y"][bad][:4])
 
 
 @pytest.mark.cuda
