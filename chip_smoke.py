@@ -19,7 +19,12 @@ Chrome trace — and co-execution of one NDRange over several devices
 (two ``cuda`` devices of the card, the card and the host) with the
 per-kernel autotuner's ``auto`` device — and Vecmathlib in the ``cuda``
 target's kernels (``use_vml=True``, ``csrc/vml.cuh``) and the
-performance-portability scoreboard over the targets at the card's sizes.
+performance-portability scoreboard over the targets at the card's sizes
+— and the other model families served at full width: zamba2-7b (hybrid:
+Mamba-2 blocks and one shared attention block, through ``rmsnorm``,
+``ssd_scan`` and ``decode_attention``), granite-moe-3b-a800m (moe),
+whisper-small (encdec: its encoder through ``flash_attention`` in every
+prefill) and llama-3.2-vision-11b (vlm).
 Each phase prints one JSON line
 or more; any mismatch, build error or launch error raises and the script
 exits non-zero.
@@ -66,14 +71,18 @@ exits non-zero.
   7. the model kernels at the serving and training paths' shapes, each
      against its plain version on the same CUDA tensors (rmsnorm:
      :data:`RMS_CASES`, rows 8 and 512 at d 576, 8 at mamba2's d 1536 and
-     3072, the training forward's 16,384 x 576, float32 within
-     ``rtol=1e-5, atol=1e-6``, bfloat16 within one bfloat16 ulp; decode
-     attention: 8 x 9 heads over 3 KV heads of 64,
-     a 2048-token bfloat16 cache, lengths from the seed with a 0 and a
-     2048, within one bfloat16 ulp, ``rtol=2**-7, atol=1e-4``, and zeros
-     for the empty row; every row must fail that tolerance against the
-     plain version given its length minus or plus one; the grid of the
-     split kernel, from ``split_plan``, must give every SM two blocks),
+     3072, the training forward's 16,384 x 576, 8 at zamba2's 3584 and
+     7168 and llama-3.2-vision's 4096, float32 within
+     ``rtol=1e-5, atol=1e-6``, bfloat16 within one bfloat16 ulp, the new
+     widths' vector instantiations timed beside the scalar kernel; decode
+     attention (:data:`DEC_CASES`): 8 x 9 heads over 3 KV heads of 64,
+     then zamba2's, granite-moe's, llama's and whisper's head shapes,
+     a 2048-token (whisper 448) bfloat16 cache, lengths from the seed with
+     a 0 and a full row, within one bfloat16 ulp, ``rtol=2**-7,
+     atol=1e-4``, and zeros for the empty row; every row must fail that
+     tolerance against the plain version given its length minus or plus
+     one; the grid of the split kernel, from ``split_plan``, must give
+     every SM two blocks),
      then timed like phase 5 beside their plain versions, their bounds
      and the PyTorch call that computes the same function (``F.rms_norm``;
      ``scaled_dot_product_attention`` with the length mask and
@@ -97,8 +106,9 @@ exits non-zero.
   9. ``ssd_scan``: its bfloat16 kernels' SASS must hold tensor-core
      instructions (``HMMA``); then against its plain version on the same
      CUDA tensors, at the served prefill's shape (1 x 512 tokens x 48
-     heads x 64, state 128, one group), at (4, 2048) of the same, and with
-     4 groups and a ragged s (1000), in bfloat16 and float32: y and the
+     heads x 64, state 128, one group), at (4, 2048) of the same, with
+     4 groups and a ragged s (1000), and at zamba2-7b's served prefill (1
+     x 512 x 112 heads x 64, state 64), in bfloat16 and float32: y and the
      final state within ``SSD_F32_TOL`` (float32) and one bfloat16 ulp for
      a bfloat16 y, every case failing the state tolerance against the
      plain version given s - 1 steps; then timed like phase 5 beside the
@@ -110,14 +120,16 @@ exits non-zero.
  10. ``flash_attention``: its bfloat16 kernel's SASS must hold
      tensor-core instructions (``HMMA``); then against its plain version,
      causal, at the training shape (8 x 9 heads over 3 KV heads x 2048 x
-     64, bfloat16), at D 128 with GQA, with Sq < Sk and at a ragged
-     length in float32: the output and lse within ``FLASH_F32_TOL``
+     64, bfloat16), at D 128 with GQA, with Sq < Sk, at a ragged length
+     in float32, at zamba2's D = 112 (bfloat16 and float32), and
+     non-causal at whisper-small's encoder shape (12 heads x 1500 x 64,
+     bfloat16): the output and lse within ``FLASH_F32_TOL``
      (float32) and one bfloat16 ulp for a bfloat16 output; then timed like
      phase 5 beside
      the plain version, the bound (both products at the bf16 tensor-core
      peak for a bfloat16 call, the FP32 peak for a float32 one) and
-     ``scaled_dot_product_attention`` (causal, ``enable_gqa=True``),
-     which the port never calls;
+     ``scaled_dot_product_attention`` (causal where the case is,
+     ``enable_gqa=True``), which the port never calls;
  11. training (main path): ``repro_torch.launch.train`` trains
      smollm-135m at full width (random weights from seed 0, the
      synthetic stream) for 20 steps of 8 x 2048 tokens with per-block
@@ -221,12 +233,38 @@ exits non-zero.
      device and wall time and both fractions; the ``bitwise`` and
      ``winner_beats_worst`` gates must hold; the reports land in
      ``build/repro_torch/phase16_scoreboard_{card,ci}.{json,md}``;
- 17. the kernels line, then the card's name and power limit, then the
-     result line.
+ 17. serving zamba2-7b (main path): ``repro_torch.launch.serve`` at
+     full width and depth (81 Mamba-2 blocks of d 3584, 112 SSD heads of
+     64, state 64; one shared attention block of 32/32 heads x 112 after
+     every 6th, 13 applications; vocab 32000; 6.75 B parameters drawn
+     from seed 0 on the host) with 8 slots and a 2048-token limit serves 8
+     requests (prompts of 32-512 tokens, each prefilled at its exact
+     length, 16-32 new tokens, one arrival every 2 steps): the seconds
+     spent drawing the weights, requests and tokens served, wall seconds,
+     tok/s, the median decode-step time, ``max_memory_allocated`` and
+     the launch counts of ``rmsnorm``, ``ssd_scan`` and
+     ``decode_attention`` (each must be > 0); one request re-run alone
+     must give the same stream; one 64-token prefill and 8 decode steps
+     of 8 rows against the plain versions' run, in bfloat16 within a
+     number of bfloat16 ulps at the logits' largest size and in float32
+     (same weights) within ``atol=1e-3``, which the prefill state one
+     token short and decode attention one key short must each fail; 5
+     decode steps profiled as in phase 6;
+ 18. the other families (main path), each the same way at full width:
+     granite-moe-3b-a800m (32 layers, 40 experts top-8; fault: every
+     token's k-th expert dropped from the combine), whisper-small (12 +
+     12 layers, frames (8, 1500, 768) from the seed; ``flash_attention``
+     must run in its encoder; fault: the encoder's output shifted by one
+     frame) and llama-3.2-vision-11b at 10 of its 40 layers (2
+     cross-attention groups, image embeddings (8, 1600, 4096) from the
+     seed, the gates drawn from N(0, 1); fault: a neighbouring slot's
+     image); 4 requests each (prompts of 32-256 tokens, 16-32 new);
+ 19. the kernels line (each kernel with the shapes it ran at), then the
+     card's name and power limit, then the result line.
 
 Launch counts are set to 0 just before each main-path phase and read
 just after it; launches made to compare a kernel with its plain version
-do not count.
+do not count.  Each phase's seconds are printed.
 
   python3 chip_smoke.py          # from the repository root, one card
 """
@@ -287,10 +325,22 @@ RMS_CASES = [(8, 576, "bfloat16", "bfloat16"), (8, 576, "bfloat16", "float32"),
              (8, 576, "float32", "float32"), (512, 576, "bfloat16", "bfloat16"),
              (512, 576, "float32", "float32"),
              (8, 1536, "bfloat16", "bfloat16"), (8, 3072, "bfloat16", "bfloat16"),
-             (16384, 576, "bfloat16", "bfloat16")]
+             (16384, 576, "bfloat16", "bfloat16"),
+             # the new families' widths: zamba2's layer norm (3584) and gated
+             # norm (7168), the float32 model's 3584, llama-3.2-vision's 4096
+             (8, 3584, "bfloat16", "bfloat16"), (8, 7168, "bfloat16", "bfloat16"),
+             (8, 3584, "float32", "float32"), (8, 4096, "bfloat16", "bfloat16")]
 # decode attention, bfloat16 q: both sides read the same cache values,
-# accumulate in float32 and round once, so one bfloat16 ulp
+# accumulate in float32 and round once, so one bfloat16 ulp.  Cases (B, H,
+# Hkv, D, S): smollm's serving shape first (its time is the kernels
+# line's, and it is replayed from a CUDA graph too), then zamba2's shared
+# attention, granite-moe's, llama-3.2-vision's and whisper-small's decoder
 DEC_RTOL, DEC_ATOL = 2.0 ** -7, 1e-4
+# the widths whose vector instantiations (14, 28 and 16 vectors a lane)
+# are timed beside the scalar kernel at the same shape
+RMS_NEW_WIDTHS = (3584, 7168, 4096)
+DEC_CASES = [(8, 9, 3, 64, 2048), (8, 32, 32, 112, 2048), (8, 24, 8, 64, 2048),
+             (8, 32, 8, 128, 2048), (8, 12, 12, 64, 448)]
 
 # phase 8: serving mamba2-780m (through repro_torch.launch.serve)
 SSM_SERVE = {"arch": "mamba2-780m", "batch_slots": 8, "max_seq": 2048,
@@ -316,20 +366,26 @@ SSM_LOGIT_ATOL_F32 = 1e-3
 # |y| <= 2 on the card, PERF.md); a bfloat16 y is rounded once, so one
 # bfloat16 ulp
 SSD_CASES = [(1, 512, 48, 64, 1, 128, 64), (4, 2048, 48, 64, 1, 128, 64),
-             (2, 1000, 48, 64, 4, 128, 64)]
+             (2, 1000, 48, 64, 4, 128, 64),
+             (1, 512, 112, 64, 1, 64, 64)]    # zamba2-7b's served prefill
 SSD_F32_TOL = {"rtol": 1e-5, "atol": 1e-5}
 SSD_Y_BF16_TOL = {"rtol": 2.0 ** -7, "atol": 1e-6}
 
-# phase 10: flash attention cases, causal, ((B, H, Hkv, Sq, Sk, D), dtype):
+# phase 10: flash attention cases, ((B, H, Hkv, Sq, Sk, D), dtype, causal):
 # the training shape first (its time is the kernels line's), then D = 128
 # with GQA, Sq < Sk (the query block aligned to the key tail), and a
-# ragged length in float32.  Both sides compute in float32 and differ in
+# ragged length in float32; then zamba2's shared attention at D = 112 in
+# bfloat16 and float32, and whisper-small's encoder (non-causal, every
+# prefill of phase 18).  Both sides compute in float32 and differ in
 # summation order and exp only: a float32 output and the lse within 1e-5;
 # a bfloat16 output is rounded once, so one bfloat16 ulp
-FLASH_CASES = [((8, 9, 3, 2048, 2048, 64), "bfloat16"),
-               ((2, 16, 4, 1024, 1024, 128), "bfloat16"),
-               ((4, 9, 3, 512, 2048, 64), "bfloat16"),
-               ((2, 9, 3, 1000, 1000, 64), "float32")]
+FLASH_CASES = [((8, 9, 3, 2048, 2048, 64), "bfloat16", True),
+               ((2, 16, 4, 1024, 1024, 128), "bfloat16", True),
+               ((4, 9, 3, 512, 2048, 64), "bfloat16", True),
+               ((2, 9, 3, 1000, 1000, 64), "float32", True),
+               ((1, 32, 32, 512, 512, 112), "bfloat16", True),
+               ((2, 32, 32, 256, 256, 112), "float32", True),
+               ((1, 12, 12, 1500, 1500, 64), "bfloat16", False)]
 FLASH_F32_TOL = {"rtol": 1e-5, "atol": 1e-5}
 FLASH_BF16_TOL = {"rtol": 2.0 ** -7, "atol": 1e-5}
 
@@ -410,6 +466,42 @@ VML_SOURCE = "src/repro_torch/csrc/vml.cuh"
 # steps work-items from the host, seconds a launch)
 SB_REPEATS = 2
 SB_LIMIT_S = 240.0
+# phases 17 and 18: the new families served at full published width
+# through repro_torch.launch.serve, random weights from the seed; llama-
+# 3.2-vision cut to 10 of its 40 layers (2 cross-attention groups), what
+# the card's memory and the host's draw of the weights allow beside the
+# others.  Each: requests re-run alone (with the image or frames of the
+# slot it ran in), then one 64-token prefill and LOGIT_STEPS decode steps of
+# 8 rows against the plain versions' run, in bfloat16 within `bf16_ulps`
+# bfloat16 ulps at the logits' largest size and in float32 (same weights)
+# within FAMILY_LOGIT_ATOL_F32, which each planted fault must fail.  The
+# bfloat16 limits are the largest differences the first card run showed
+# (PERF.md: 3.1, 4.5, 1.75 and 1.0 ulps at |logit| about 5, the
+# same inputs in every run) with a margin: one-ulp flips of the kernels'
+# bfloat16 outputs carried through the layers, and in granite-moe's
+# router a flip that moves a token to another expert.  They claim to see
+# no fault; the float32 runs (2e-5 to 1.4e-4 apart there) do that
+FAMILY_SERVE = [
+    {"phase": 17, "arch": "zamba2-7b", "layers": None, "requests": 8,
+     "prompt_len": (32, 512), "new_tokens": (16, 32), "rerun_alone": 1,
+     "kernels": ("rmsnorm", "ssd_scan", "decode_attention"),
+     "bf16_ulps": 5, "profile": True},
+    {"phase": 18, "arch": "granite-moe-3b-a800m", "layers": None,
+     "requests": 4, "prompt_len": (32, 256), "new_tokens": (16, 32),
+     "rerun_alone": 1, "kernels": ("rmsnorm", "decode_attention"),
+     "bf16_ulps": 6, "profile": False},
+    {"phase": 18, "arch": "whisper-small", "layers": None, "requests": 4,
+     "prompt_len": (32, 256), "new_tokens": (16, 32), "rerun_alone": 1,
+     "kernels": ("decode_attention", "flash_attention"), "bf16_ulps": 3,
+     "profile": False},
+    {"phase": 18, "arch": "llama-3.2-vision-11b", "layers": 10,
+     "requests": 4, "prompt_len": (32, 256), "new_tokens": (16, 32),
+     "rerun_alone": 1, "kernels": ("rmsnorm", "decode_attention"),
+     "bf16_ulps": 2, "profile": False},
+]
+FAMILY_COMMON = {"batch_slots": 8, "max_seq": 2048, "arrival_every": 2,
+                 "seed": 0}
+FAMILY_LOGIT_ATOL_F32 = 1e-3
 
 
 def emit(phase, **fields):
@@ -615,28 +707,30 @@ def profile_prefill(torch, forward, init_caches, cfg, params, toks, max_seq,
 
 
 def logits_vs_plain(torch, forward, init_caches, mcfg, mparams, toks0,
-                    max_seq, dev, faults):
-    """One prefill of ``toks0`` and :data:`LOGIT_STEPS` decode steps.
-    Per step, the largest |logit difference| from the plain versions'
-    run: of the kernels, and of each fault (a name -> a context manager
-    to run the same steps under, fed the same tokens).  Only the real
-    vocabulary's logits are compared: the padded rows are -1e9 on both
-    sides."""
+                    max_seq, dev, faults, aux=None):
+    """One prefill of ``toks0`` (with the auxiliary inputs ``aux``, one
+    row per row of ``toks0``) and :data:`LOGIT_STEPS` decode steps.  Per
+    step, the largest |logit difference| from the plain versions' run: of
+    the kernels, and of each fault (a name -> a context manager to run
+    the same steps under, fed the same tokens, or a pair of such a
+    context manager and the auxiliary inputs to run it with).  Only the
+    real vocabulary's logits are compared: the padded rows are -1e9 on
+    both sides."""
     V = mcfg.vocab
 
-    def run(feed=None):
+    def run(feed=None, aux_in=aux):
         out, fed = [], []
         with torch.inference_mode():
             caches = init_caches(mcfg, toks0.shape[0], max_seq, device=dev)
-            lg, _, caches = forward(mparams, toks0, mcfg, caches=caches,
-                                    mode="prefill")
+            lg, _, caches = forward(mparams, toks0, mcfg, aux_inputs=aux_in,
+                                    caches=caches, mode="prefill")
             out.append(lg[:, -1, :V].float())
             for i in range(LOGIT_STEPS):
                 nxt = lg[:, -1, :V].argmax(-1)[:, None] if feed is None \
                     else feed[i]
                 fed.append(nxt)
-                lg, _, caches = forward(mparams, nxt, mcfg, caches=caches,
-                                        mode="decode")
+                lg, _, caches = forward(mparams, nxt, mcfg, aux_inputs=aux_in,
+                                        caches=caches, mode="decode")
                 out.append(lg[:, -1, :V].float())
         return out, fed
 
@@ -645,8 +739,9 @@ def logits_vs_plain(torch, forward, init_caches, mcfg, mparams, toks0,
         want, _ = run(fed)
     runs = {"kernels": got}
     for name, fault in faults.items():
+        fault, fault_aux = fault if isinstance(fault, tuple) else (fault, aux)
         with fault():
-            runs[name], _ = run(fed)
+            runs[name], _ = run(fed, fault_aux)
     torch.cuda.synchronize()
     res = {name: [float((a - b).abs().max()) for a, b in zip(xs, want)]
            for name, xs in runs.items()}
@@ -678,14 +773,80 @@ def bf16_ulp(v):
     return 2.0 ** (math.floor(math.log2(v)) - 7)
 
 
+def decode_case(torch, np, time_ms, rng, dev, shape, graph):
+    """Decode attention at ``shape`` (B, H, Hkv, D, S), a bfloat16 cache
+    and lengths from ``rng`` with a 0 and an S: against its plain version
+    (zeros for the empty row), the tolerance failing a length off by one
+    in every row it can, the split grid giving every SM two blocks; then
+    timed beside the plain version, the bound and SDPA (the length mask,
+    ``enable_gqa``), and, with ``graph``, both replayed from CUDA
+    graphs.  Returns the case's fields."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain, split_plan)
+    B, H, Hkv, D, S = shape
+
+    def t(size):
+        return torch.tensor(rng.standard_normal(size), device=dev) \
+            .to(torch.bfloat16)
+    q, kc, vc = t((B, H, D)), t((B, Hkv, S, D)), t((B, Hkv, S, D))
+    lens = rng.integers(0, S + 1, B).astype(np.int32)
+    lens[0], lens[1] = 0, S
+    lengths = torch.tensor(lens, device=dev)
+    n_split, kps = split_plan(B, Hkv, S)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert B * Hkv * n_split >= 2 * sms, \
+        ("decode attention's grid gives the SMs fewer than two blocks each",
+         shape, n_split, sms)
+    a = decode_attention(q, kc, vc, lengths)
+    b = decode_attention_plain(q, kc, vc, lengths)
+    assert torch.all(a[0] == 0), "the row with no valid key is not zeros"
+    torch.testing.assert_close(a.float(), b.float(), atol=DEC_ATOL,
+                               rtol=DEC_RTOL)
+    err = float((a.float() - b.float()).abs().max())
+    # the tolerance sees a length off by one, in every row it can
+    for shift in (-1, 1):
+        moved = (lengths + shift).clamp(0, S)
+        other = decode_attention_plain(q, kc, vc, moved).float()
+        for r in range(B):
+            assert int(moved[r]) == int(lens[r]) or not torch.allclose(
+                a[r].float(), other[r], rtol=DEC_RTOL, atol=DEC_ATOL), \
+                ("decode attention tolerance misses a length off by one",
+                 shape, r, int(lens[r]), shift)
+    ms = time_ms(lambda: decode_attention(q, kc, vc, lengths))
+    plain_ms = time_ms(lambda: decode_attention_plain(q, kc, vc, lengths),
+                       reps=3, warmup=1)
+    mask = (torch.arange(S, device=dev)[None, :]
+            < lengths[:, None].long())[:, None, None, :]
+    q4 = q[:, :, None, :]
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, kc, vc, attn_mask=mask, enable_gqa=True))
+    nbytes = 2 * Hkv * D * 2 * int(lens.sum()) + 2 * B * H * D * 2 + 4 * B
+    bms = nbytes / PEAK_HBM_BYTES * 1e3
+    case = {"B": B, "H": H, "Hkv": Hkv, "D": D, "S": S,
+            "lengths": lens.tolist(), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bms,
+            "fraction_of_bound": bms / ms, "n_split": n_split,
+            "keys_per_split": kps, "blocks": B * Hkv * n_split,
+            "combine_blocks": B * H, "max_abs_err_vs_plain": err}
+    if graph:
+        # the same two calls replayed from CUDA graphs: the device's time
+        # alone, where the host's dispatch outlasts the L2 flush
+        case["graph_replay"] = {
+            "ms": graph_ms(torch, time_ms,
+                           lambda: decode_attention(q, kc, vc, lengths)),
+            "library_ms": graph_ms(
+                torch, time_ms, lambda: F.scaled_dot_product_attention(
+                    q4, kc, vc, attn_mask=mask, enable_gqa=True))}
+    return case
+
+
 def serve_phase(torch, np, time_ms):
     """Phases 6 and 7: the serving path at full width, then the model
     kernels against their plain versions, timed.  Returns the kernels
     line's entries of the two kernels."""
     import torch.nn.functional as F
     from repro_torch.kernels import KERNELS
-    from repro_torch.kernels.decode_attention import (
-        decode_attention, decode_attention_plain, split_plan)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
     from repro_torch import configs
     from repro_torch.launch import serve
@@ -794,6 +955,20 @@ def serve_phase(torch, np, time_ms):
         case = {"rows": rows, "d": d, "x": str(xdt), "w": str(wdt), "ms": ms,
                 "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
                 "fraction_of_bound": bms / ms}
+        if d in RMS_NEW_WIDTHS:
+            # the scalar kernel at the same shape, beside the vector
+            # instantiation this width takes: x copied to an address off
+            # by one element, which no 16-byte vector load takes
+            xs = torch.empty(rows * d + 8, dtype=xdt, device=dev)[
+                1:1 + rows * d].view(rows, d)
+            xs.copy_(x)
+            sa = rmsnorm(xs, w)
+            if xdt == torch.float32:
+                torch.testing.assert_close(sa, b, rtol=1e-5, atol=1e-6)
+            else:
+                torch.testing.assert_close(sa.float(), b.float(),
+                                           rtol=2.0 ** -7, atol=0)
+            case["scalar_ms"] = time_ms(lambda: rmsnorm(xs, w))
         if not rms_cases:
             # the decode step's call again, replayed from CUDA graphs: the
             # device's time alone, where the host's dispatch outlasts the
@@ -811,67 +986,27 @@ def serve_phase(torch, np, time_ms):
                     "launches": launches["rmsnorm"], "max_abs_err": rms_err,
                     "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
                     "bound_ms": main_case["bound_ms"], "bound_by": "bytes",
-                    "library_ms": main_case["library_ms"]})
+                    "library_ms": main_case["library_ms"],
+                    "shapes": [list(c) for c in RMS_CASES]})
 
-    B, H, Hkv, D, S = eng.B, cfg.n_heads, cfg.n_kv, cfg.hd, eng.S
-    q = torch.tensor(rng.standard_normal((B, H, D)), device=dev) \
-        .to(torch.bfloat16)
-    kc = torch.tensor(rng.standard_normal((B, Hkv, S, D)), device=dev) \
-        .to(torch.bfloat16)
-    vc = torch.tensor(rng.standard_normal((B, Hkv, S, D)), device=dev) \
-        .to(torch.bfloat16)
-    lens = rng.integers(0, S + 1, B).astype(np.int32)
-    lens[0], lens[1] = 0, S
-    lengths = torch.tensor(lens, device=dev)
-    n_split, kps = split_plan(B, Hkv, S)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert B * Hkv * n_split >= 2 * sms, \
-        ("decode attention's grid gives the SMs fewer than two blocks each",
-         n_split, sms)
-    a = decode_attention(q, kc, vc, lengths)
-    b = decode_attention_plain(q, kc, vc, lengths)
-    assert torch.all(a[0] == 0), "the row with no valid key is not zeros"
-    torch.testing.assert_close(a.float(), b.float(), atol=DEC_ATOL,
-                               rtol=DEC_RTOL)
-    dec_err = float((a.float() - b.float()).abs().max())
-    # the tolerance sees a length off by one, in every row it can
-    for shift in (-1, 1):
-        moved = (lengths + shift).clamp(0, S)
-        other = decode_attention_plain(q, kc, vc, moved).float()
-        for r in range(B):
-            assert int(moved[r]) == int(lens[r]) or not torch.allclose(
-                a[r].float(), other[r], rtol=DEC_RTOL, atol=DEC_ATOL), \
-                ("decode attention tolerance misses a length off by one",
-                 r, int(lens[r]), shift)
-    ms = time_ms(lambda: decode_attention(q, kc, vc, lengths))
-    plain_ms = time_ms(lambda: decode_attention_plain(q, kc, vc, lengths),
-                       reps=3, warmup=1)
-    mask = (torch.arange(S, device=dev)[None, :]
-            < lengths[:, None].long())[:, None, None, :]
-    q4 = q[:, :, None, :]
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, kc, vc, attn_mask=mask, enable_gqa=True))
-    # the same two calls replayed from CUDA graphs: the device's time
-    # alone, where the host's dispatch outlasts the L2 flush
-    graph = {"ms": graph_ms(torch, time_ms,
-                            lambda: decode_attention(q, kc, vc, lengths)),
-             "library_ms": graph_ms(
-                 torch, time_ms, lambda: F.scaled_dot_product_attention(
-                     q4, kc, vc, attn_mask=mask, enable_gqa=True))}
-    nbytes = 2 * Hkv * D * 2 * int(lens.sum()) + 2 * B * H * D * 2 + 4 * B
-    bms = nbytes / PEAK_HBM_BYTES * 1e3
-    emit(7, kernel="decode_attention", B=B, H=H, Hkv=Hkv, D=D, S=S,
-         lengths=lens.tolist(), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-         graph_replay=graph, bound_ms=bms, fraction_of_bound=bms / ms,
-         n_split=n_split,
-         keys_per_split=kps, blocks=B * Hkv * n_split, combine_blocks=B * H,
-         max_abs_err_vs_plain=dec_err, launches=launches["decode_attention"])
+    assert DEC_CASES[0] == (eng.B, cfg.n_heads, cfg.n_kv, cfg.hd, eng.S)
+    dec_cases = [decode_case(torch, np, time_ms, rng, dev, shape,
+                             graph=not n)
+                 for n, shape in enumerate(DEC_CASES)]
+    for case in dec_cases:
+        emit(7, kernel="decode_attention", **case,
+             launches=launches["decode_attention"])
+    main_case = dec_cases[0]      # the smollm serving shape
     entries.append({"name": "decode_attention",
                     "source": MODEL_KERNELS["decode_attention"][0],
                     "replaces": MODEL_KERNELS["decode_attention"][1],
                     "launches": launches["decode_attention"],
-                    "max_abs_err": dec_err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bms, "bound_by": "bytes", "library_ms": lib_ms})
+                    "max_abs_err": max(c["max_abs_err_vs_plain"]
+                                       for c in dec_cases),
+                    "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+                    "bound_ms": main_case["bound_ms"], "bound_by": "bytes",
+                    "library_ms": main_case["library_ms"],
+                    "shapes": [list(c) for c in DEC_CASES]})
     return entries
 
 
@@ -1060,16 +1195,19 @@ def ssm_serve_phase(torch, np, time_ms):
              "launches": launches["ssd_scan"], "max_abs_err": err,
              "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
              "bound_ms": main_case["bound_ms"],
-             "bound_by": main_case["bound_by"], "library_ms": None}]
+             "bound_by": main_case["bound_by"], "library_ms": None,
+             "shapes": [list(c) for c in SSD_CASES]}]
 
 
-def flash_flops_bytes(B, H, Hkv, Sq, Sk, D, esize):
-    """Causal flash attention's work for these inputs, as (flops, bytes).
+def flash_flops_bytes(B, H, Hkv, Sq, Sk, D, esize, causal=True):
+    """Flash attention's work for these inputs, as (flops, bytes).
     Flops: the two products over the (query, key) pairs the mask lets
-    through, row i seeing min(max(i + Sk - Sq + 1, 0), Sk) keys, two
-    operations per multiply-add.  Bytes: q, k, v read once and o written
-    once in their dtype, the float32 lse written once."""
-    rows = [min(max(i + Sk - Sq + 1, 0), Sk) for i in range(Sq)]
+    through, row i seeing min(max(i + Sk - Sq + 1, 0), Sk) keys when
+    causal and Sk otherwise, two operations per multiply-add.  Bytes: q,
+    k, v read once and o written once in their dtype, the float32 lse
+    written once."""
+    rows = [min(max(i + Sk - Sq + 1, 0), Sk) if causal else Sk
+            for i in range(Sq)]
     flops = 2.0 * 2.0 * B * H * D * sum(rows)
     nbytes = (2 * B * H * Sq * D + 2 * B * Hkv * Sk * D) * esize \
         + 4 * B * H * Sq
@@ -1093,7 +1231,7 @@ def flash_phase(torch, np, time_ms, dev):
     assert tensor_core > 0, ("no tensor-core instruction in the bfloat16 "
                              "flash kernel", mma_sass)
     cases = []
-    for i, ((B, H, Hkv, Sq, Sk, D), dt) in enumerate(FLASH_CASES):
+    for i, ((B, H, Hkv, Sq, Sk, D), dt, causal) in enumerate(FLASH_CASES):
         dtype = getattr(torch, dt)
         rng = np.random.default_rng(20 + i)
 
@@ -1101,8 +1239,8 @@ def flash_phase(torch, np, time_ms, dev):
             return torch.tensor(rng.standard_normal(shape),
                                 dtype=torch.float32, device=dev).to(dtype)
         q, k, v = t((B, H, Sq, D)), t((B, Hkv, Sk, D)), t((B, Hkv, Sk, D))
-        o, lse = flash_attention(q, k, v, causal=True)
-        po, plse = flash_attention_plain(q, k, v, causal=True)
+        o, lse = flash_attention(q, k, v, causal=causal)
+        po, plse = flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
         tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
         torch.testing.assert_close(o.float(), po.float(), **tol)
@@ -1110,19 +1248,22 @@ def flash_phase(torch, np, time_ms, dev):
         o_err = float((o.float() - po.float()).abs().max())
         lse_err = float((lse - plse).abs().max())
         del po, plse
-        ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
-        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True),
-                           reps=3, warmup=1)
-        mask = None if Sq == Sk else \
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=causal))
+        plain_ms = time_ms(
+            lambda: flash_attention_plain(q, k, v, causal=causal), reps=3,
+            warmup=1)
+        mask = None if Sq == Sk or not causal else \
             (torch.arange(Sk, device=dev)[None, :]
              <= torch.arange(Sq, device=dev)[:, None] + (Sk - Sq))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=True))
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True))
         flops, nbytes = flash_flops_bytes(B, H, Hkv, Sq, Sk, D,
-                                          q.element_size())
+                                          q.element_size(), causal)
         bms, by = bound(0.0, nbytes, flops) if dtype == torch.bfloat16 \
             else bound(flops, nbytes)
         cases.append({"shape": [B, H, Hkv, Sq, Sk, D], "dtype": dt,
+                      "causal": causal,
                       "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                       "bound_ms": bms, "bound_by": by,
                       "fraction_of_bound": bms / ms, "flops": flops,
@@ -1133,7 +1274,7 @@ def flash_phase(torch, np, time_ms, dev):
          bf16_sass=mma_sass, bf16_tensor_core_instructions=tensor_core,
          tol={"float32": FLASH_F32_TOL, "bfloat16": FLASH_BF16_TOL},
          library="scaled_dot_product_attention(enable_gqa=True), causal "
-                 "aligned to the key tail")
+                 "aligned to the key tail where the case is causal")
     return cases
 
 
@@ -1574,7 +1715,8 @@ def host_runtime_phase(torch, np, time_ms, flush, ctx, cuda_dev, vec_dev,
     torch.cuda.empty_cache()
     return {"name": "cuda_target/fused_chain", "launches": on_launches[3],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "shape": {"n": CHAIN_N, "local": CHAIN_LSZ}}
 
 
 # ---------------------------------------------------------------------------
@@ -2082,7 +2224,8 @@ def vml_phase(torch, np, time_ms, ctx, cuda_dev, vec_dev, vml_progs,
         entries.append({"name": f"cuda_target/vml_{op}", "source": VML_SOURCE,
                         "launches": launches[op], "max_abs_err": 0.0,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                        "bound_by": by, "library_ms": lib_ms})
+                        "bound_by": by, "library_ms": lib_ms,
+                        "shape": {"n": VML_N, "local": VML_LSZ}})
         del got, plain, libm, bufs
     return entries
 
@@ -2153,6 +2296,218 @@ def scoreboard_phase(card, ci):
     assert seconds < SB_LIMIT_S, ("scoreboard phase", seconds)
 
 
+# ---------------------------------------------------------------------------
+# phases 17 and 18: the new families served at full width
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def kth_expert_dropped():
+    """Run the model with the plain versions and every token's last
+    (k-th) expert dropped from the MoE's combine, as if its capacity had
+    run out (for the check that the logits' limit sees it)."""
+    from repro_torch.models import layers
+    real = layers.moe_route
+
+    def route(x, router, cfg):
+        r = real(x, router, cfg)
+        keep = r["keep"].clone()
+        keep[..., -1] = False
+        return dict(r, keep=keep)
+
+    with plain_kernels():
+        layers.moe_route = route
+        try:
+            yield
+        finally:
+            layers.moe_route = real
+
+
+@contextlib.contextmanager
+def enc_out_shifted():
+    """Run the model with the plain versions and the encoder's output
+    shifted by one frame (frame t + 1 in frame t's place, the last one
+    repeated), for the check that the logits' limit sees it.  (A rotation
+    would not do: cross-attention without positions on its keys sees the
+    frames as a set.)"""
+    import torch
+    from repro_torch.models import model
+    real = model._encode_audio
+
+    def shifted(params, frames, cfg):
+        out = real(params, frames, cfg)
+        return torch.cat([out[:, 1:], out[:, -1:]], dim=1)
+
+    with plain_kernels():
+        model._encode_audio = shifted
+        try:
+            yield
+        finally:
+            model._encode_audio = real
+
+
+def family_phase(torch, np, spec, dev):
+    """Phase 17 or 18 for one architecture of :data:`FAMILY_SERVE`: its
+    weights drawn at full width (depth cut where ``layers`` says), the
+    serving run through ``repro_torch.launch.serve`` with the launch
+    counts of the model kernels, requests re-run alone, the logits
+    against the plain versions in bfloat16 and float32 with the family's
+    planted faults, and, where ``profile`` says, 5 decode steps
+    profiled.  Emits the phase's line; returns its seconds."""
+    from repro_torch import configs
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import serve
+    from repro_torch.models import forward, init_caches, init_params
+    from repro_torch.serving import Request, ServingEngine
+
+    t_phase = time.perf_counter()
+    run_cfg = {**FAMILY_COMMON, **spec}
+    cfg = configs.get_config(spec["arch"])
+    if spec["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    seed, B = FAMILY_COMMON["seed"], FAMILY_COMMON["batch_slots"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # drawn on the card: the host takes ~9 s a billion (PERF.md)
+    params = init_params(cfg, torch.Generator(dev).manual_seed(seed),
+                         device=dev)
+    if cfg.family == "vlm":
+        # zeros at init: the image would reach no logit
+        params["cross"]["gate"] = torch.randn(
+            params["cross"]["gate"].shape, device=dev,
+            generator=torch.Generator(dev).manual_seed(seed + 1))
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(seed)
+    aux = serve.make_aux_inputs(cfg, rng, B)
+    eng = serve.make_engine(cfg, seed, B, FAMILY_COMMON["max_seq"],
+                            device=dev, aux_inputs=aux, params=params)
+    reqs = serve.make_requests(cfg, rng, spec["requests"],
+                               spec["prompt_len"], spec["new_tokens"])
+    slot_of = {}
+    real_prefill = eng._exec.prefill
+
+    def prefill(prompt, slot):          # which slot (image, frames) it took
+        slot_of[bytes(np.asarray(prompt, np.int32))] = slot
+        return real_prefill(prompt, slot)
+    eng._exec.prefill = prefill
+    for k in KERNELS:
+        k.launches = 0
+    run = serve.serve(eng, reqs, FAMILY_COMMON["arrival_every"])
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        serve.report(run)
+    done = run["done"]
+    assert len(done) == len(reqs) and all(r.done for r in reqs), \
+        [(r.id, r.state, r.error) for r in reqs]
+    for r in reqs:
+        assert len(r.out_tokens) == r.max_new_tokens, r.id
+        assert all(0 <= t < cfg.vocab for t in r.out_tokens), r.id
+    assert all(launches[k] > 0 for k in spec["kernels"]), \
+        ("a model kernel was not launched on the serving path", spec["arch"],
+         launches)
+    assert eng.context.devices[0].torch_device == dev
+
+    # the same requests alone, with the slot's image or frames in every row
+    for r in reqs[:spec["rerun_alone"]]:
+        slot = slot_of[bytes(np.asarray(r.prompt, np.int32))]
+        alone = ServingEngine(
+            cfg, eng._exec.params, batch_slots=eng.B, max_seq=eng.S,
+            aux_inputs={k: np.repeat(v[slot:slot + 1], B, 0)
+                        for k, v in aux.items()}, context=eng.context)
+        again = Request(prompt=r.prompt.copy(),
+                        max_new_tokens=r.max_new_tokens)
+        alone.generate([again])
+        assert again.out_tokens == r.out_tokens, \
+            ("stream changed when served alone", spec["arch"], r.id)
+        del alone
+
+    # logits: kernels against their plain versions, one 64-token prefill
+    # and decode steps of 8 rows, in the served bfloat16 and in float32
+    # (same weights); in float32 the limit must fail the planted faults
+    lrng = np.random.default_rng(3)
+    toks0 = torch.tensor(lrng.integers(0, cfg.vocab, (B, 64)), device=dev)
+    taux = {k: torch.as_tensor(v, device=dev) for k, v in aux.items()}
+    faults = {}
+    if cfg.family == "hybrid":
+        faults = {"state_one_token_short": prefill_state_short,
+                  "short_by_one": lambda: decode_lengths_shifted(-1)}
+    elif cfg.family == "moe":
+        faults = {"kth_expert_dropped": kth_expert_dropped}
+    elif cfg.family == "encdec":
+        faults = {"enc_out_shifted": enc_out_shifted}
+    elif cfg.family == "vlm":
+        faults = {"neighbour_image": (
+            plain_kernels,
+            {"img_embeds": torch.roll(taux["img_embeds"], 1, dims=0)})}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    logits = {
+        "bfloat16": logits_vs_plain(torch, forward, init_caches, cfg,
+                                    eng._exec.params, toks0, eng.S, dev, {},
+                                    aux=taux),
+        "float32": logits_vs_plain(torch, forward, init_caches, cfg32,
+                                   eng.params, toks0, eng.S, dev, faults,
+                                   aux=taux)}
+    limits = {"bfloat16": spec["bf16_ulps"]
+              * bf16_ulp(logits["bfloat16"]["max_abs_logit"]),
+              "float32": FAMILY_LOGIT_ATOL_F32}
+    prof = profile_decode(torch, forward, init_caches, cfg, eng._exec.params,
+                          toks0, eng.S, dev) if spec["profile"] else None
+    emit(spec["phase"], path="repro_torch.launch.serve", arch=spec["arch"],
+         serve=run_cfg,
+         config={"family": cfg.family, "n_layers": cfg.n_layers,
+                 "published_layers": configs.get_config(
+                     spec["arch"]).n_layers,
+                 "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                 "n_kv": cfg.n_kv, "head_dim": cfg.hd, "d_ff": cfg.d_ff,
+                 "vocab": cfg.vocab, "dtype": cfg.dtype,
+                 "params": n_params},
+         draw_s=draw_s, requests=len(done), tokens=run["tokens"],
+         wall_s=run["wall_s"], tok_s=run["tok_s"],
+         decode_steps=run["decode_steps"],
+         decode_step_ms_median=run["decode_step_ms_median"],
+         prefill_shapes=eng.compile_stats["prefill_shapes"],
+         prompt_lens=[len(r.prompt) for r in reqs],
+         max_memory_allocated_gb=peak / 1e9, launches=launches,
+         summary=log.getvalue().splitlines()[:4],
+         rerun_alone_identical=spec["rerun_alone"],
+         logits_vs_plain=logits, logits_atol=limits, decode_profile=prof,
+         seconds=time.perf_counter() - t_phase)
+    for dt, res in logits.items():
+        assert max(res["kernels"]) <= limits[dt], \
+            ("logits, kernels vs plain", spec["arch"], dt, res["kernels"],
+             limits[dt])
+    for name in faults:
+        assert max(logits["float32"][name]) > FAMILY_LOGIT_ATOL_F32, \
+            ("the float32 logits' limit does not see a planted fault",
+             spec["arch"], name, logits["float32"][name])
+    del eng, params, run, taux
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t_phase
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def family_phases(torch, gc):
+    """Phases 17 and 18, every architecture of :data:`FAMILY_SERVE`, each
+    after the last one's memory is given back."""
+    import numpy as np
+    for spec in FAMILY_SERVE:
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit(spec["phase"], arch=spec["arch"], part="start",
+             memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
+        family_phase(torch, np, spec, torch.device("cuda", 0))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2164,6 +2519,7 @@ def main() -> int:
               f"run from the repository root", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    import gc
     import numpy as np
     from repro_torch.core import KernelBuilder
     from repro_torch.core.cases import CASES, build_dot_product, builder
@@ -2371,7 +2727,8 @@ def main() -> int:
     bms, by = bound(8.0 * QS_N, qs_bytes)
     entries.append({"name": "cuda_target/dot_product", "launches": dot_launches,
                     "max_abs_err": dot_err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+                    "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+                    "shape": {"n": QS_N, "local": QS_LSZ}})
 
     for name, sk, shape, params, k, inputs, gsz, lsz, setup_s in prepared:
         binary = k.bind(cuda_dev, lsz)
@@ -2424,21 +2781,28 @@ def main() -> int:
         entries.append({"name": label, "launches": launches,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bms, "bound_by": by,
-                        "library_ms": lib_ms})
+                        "library_ms": lib_ms, "shape": shape})
         del dbufs, pbufs
         torch.cuda.empty_cache()
     assert dot_launches > 0
 
     # -- 6. serving at full width (main path) ----------------------------------------
+    t6 = time.perf_counter()
     entries += serve_phase(torch, np, time_ms)
+    emit(7, part="done", seconds_6_7=time.perf_counter() - t6)
     torch.cuda.empty_cache()
 
     # -- 8. serving mamba2-780m at full width (main path) ----------------------------
+    t8 = time.perf_counter()
     entries += ssm_serve_phase(torch, np, time_ms)
+    emit(9, part="done", seconds_8_9=time.perf_counter() - t8)
     torch.cuda.empty_cache()
 
     # -- 10-12. flash attention, training (main path), the gradient check ----------
+    t10 = time.perf_counter()
     flash_cases = flash_phase(torch, np, time_ms, dev)
+    emit(10, part="done", seconds=time.perf_counter() - t10)
+    t11 = time.perf_counter()
     train_launches = train_phase(torch, np)
     grad_check_phase(torch, np, dev)
     main_case = flash_cases[0]            # the training shape, bfloat16
@@ -2449,7 +2813,10 @@ def main() -> int:
         "max_abs_err": max(c["o_err"] for c in flash_cases),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]})
+        "library_ms": main_case["library_ms"],
+        "shapes": [[*shape, dt, "causal" if causal else "full"]
+                   for shape, dt, causal in FLASH_CASES]})
+    emit(12, part="done", seconds_11_12=time.perf_counter() - t11)
     torch.cuda.empty_cache()
 
     # -- 13. the host runtime (main path) --------------------------------------------
@@ -2476,7 +2843,11 @@ def main() -> int:
     # -- 16. the performance-portability scoreboard -------------------------------
     scoreboard_phase(sb_card, sb_ci)
 
-    # -- 17. kernels line, card, result --------------------------------------------
+    # -- 17, 18. the new families served at full width (main path) ------------------
+    del sb_card, sb_ci, flush
+    family_phases(torch, gc)
+
+    # -- 19. kernels line, card, result --------------------------------------------
     print(json.dumps({"kernels": [
         {"name": e["name"], "route": "cuda",
          "source": e.get("source", KERNEL_SOURCE),
@@ -2484,6 +2855,7 @@ def main() -> int:
          "max_abs_err": e["max_abs_err"], "ms": e["ms"],
          "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
          "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+         "shapes": e.get("shapes", [e.get("shape")]),
          "held_against_plain": True} for e in entries]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,9 @@
 """Architecture registry of the port: one module per architecture.
 
 ``get_config(arch)`` returns the exact published config; ``get_smoke(arch)``
-returns a reduced same-family config for CPU tests.  The port runs the
-dense and ssm families so far, so the registry lists ``smollm-135m`` and
-``mamba2-780m``; the reference's other architectures wait for their
-model families (ROADMAP A.8) and raise ``KeyError`` saying so.
+returns a reduced same-family config for CPU tests.  The registry lists
+the reference's ten architectures, in its order; each module is a copy
+of the reference's.
 """
 
 from __future__ import annotations
@@ -16,23 +15,24 @@ from typing import List
 from ..models.config import ModelConfig
 
 _ARCHS = {
-    "smollm-135m": "smollm_135m",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe",
+    "granite-moe-3b-a800m": "granite_moe",
     "mamba2-780m": "mamba2_780m",
+    "whisper-small": "whisper_small",
+    "internlm2-20b": "internlm2_20b",
+    "granite-34b": "granite_34b",
+    "smollm-135m": "smollm_135m",
+    "starcoder2-7b": "starcoder2_7b",
+    "llama-3.2-vision-11b": "llama32_vision",
+    "zamba2-7b": "zamba2_7b",
 }
-
-#: the reference's other architectures, not ported yet (ROADMAP A.8)
-_WAITING = ("phi3.5-moe-42b-a6.6b", "granite-moe-3b-a800m", "whisper-small",
-            "internlm2-20b", "granite-34b", "starcoder2-7b",
-            "llama-3.2-vision-11b", "zamba2-7b")
 
 ARCH_IDS: List[str] = list(_ARCHS)
 
 
 def _module(arch: str):
     if arch not in _ARCHS:
-        why = ("its model family is not ported yet (ROADMAP A.8)"
-               if arch in _WAITING else "unknown arch")
-        raise KeyError(f"{arch!r}: {why}; ported: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"{__name__}.{_ARCHS[arch]}")
 
 

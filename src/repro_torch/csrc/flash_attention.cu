@@ -31,7 +31,12 @@
 // mma.sync.m16n8k16 bf16 x bf16 -> f32, operands from shared memory by
 // ldmatrix (.trans for V), in the FlashAttention-2 shape: one 128-thread
 // block per (b * H + h, q tile of 4 warps x 16 MT rows; MT = 2 for D = 64,
-// 1 for D = 128, what the registers allow), heaviest (last) q tiles first.
+// 1 for D = 112 and 128, what the registers allow), heaviest (last) q tiles
+// first.  D = 112 (zamba2's shared attention) takes 7 k steps of Q K^T and
+// 14 n tiles of the output, which ldmatrix.x4.trans reads in 7 pairs; its
+// rows of D + 8 = 120 bf16 are 240 bytes, a multiple of 16, so every
+// ldmatrix row and cp.async chunk stays 16-byte aligned and the 8 rows of
+// an ldmatrix still fall on 8 different 16-byte bank groups.
 // The q tile is copied once and held in registers as A fragments.  K and V
 // tiles of 64 keys go through a two-stage ring in shared memory, filled by
 // 16-byte cp.async copies with the rows past Sk zero-filled, so the next
@@ -629,7 +634,7 @@ int launch_fp32(const void* q, const void* k, const void* v, void* o,
 
 // q, o: (B, H, Sq, D); k, v: (B, Hkv, Sk, D), all contiguous and of dtype
 // code dt (0 = float32, 1 = bfloat16, which must be 16-byte aligned); lse:
-// (B, H, Sq) float32.  D is 64 or 128; H % Hkv == 0.  Launches on `stream`
+// (B, H, Sq) float32.  D is 64, 112 or 128; H % Hkv == 0.  Launches on `stream`
 // and returns cudaGetLastError().
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
@@ -645,12 +650,18 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (dt == 0 && D == 64)
     return launch_fp32<64>(q, k, v, o, l, B, H, Hkv, Sq, Sk, sm_scale,
                            causal, s);
+  if (dt == 0 && D == 112)
+    return launch_fp32<112>(q, k, v, o, l, B, H, Hkv, Sq, Sk, sm_scale,
+                            causal, s);
   if (dt == 0 && D == 128)
     return launch_fp32<128>(q, k, v, o, l, B, H, Hkv, Sq, Sk, sm_scale,
                             causal, s);
   if (dt == 1 && D == 64)
     return launch_mma<64>(q, k, v, o, l, B, H, Hkv, Sq, Sk, sm_scale, causal,
                           s);
+  if (dt == 1 && D == 112)
+    return launch_mma<112>(q, k, v, o, l, B, H, Hkv, Sq, Sk, sm_scale, causal,
+                           s);
   if (dt == 1 && D == 128)
     return launch_mma<128>(q, k, v, o, l, B, H, Hkv, Sq, Sk, sm_scale,
                            causal, s);

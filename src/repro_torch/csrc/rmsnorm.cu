@@ -31,7 +31,12 @@
 // (every lane of the row ends with the sum), the Newton rsqrt is computed
 // in registers, and the row is scaled and stored 16 bytes at a time.  VPL
 // is instantiated for the counts the models' widths give: 6, 9 and 12 (d
-// 576, 1536 and 3072 in bf16; 576 and 1536 in f32).  Any other d, and a d
+// 576, 1536 and 3072 in bf16; 576 and 1536 in f32), 14, 16 and 28 (d 3584,
+// 4096 and 7168 in bf16; 3584 in f32; 28 not for a bf16 x with an f32
+// w, which spills).  Where x's and w's registers
+// together would pass 160 a lane (VPL x (4 + w's words a vector)), w is
+// not held: its vectors are read again, from L1 or L2, as the row is
+// scaled, so that x alone stays in registers.  Any other d, and a d
 // that takes no 16-byte vector, goes to a scalar kernel: one warp per row,
 // element by element, a second pass for the output.  Built with
 // -fmad=false, so each multiply and add rounds once, as the reference's
@@ -113,13 +118,16 @@ rmsnorm_vec_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
   const long long r = store ? row : rows - 1;
   const TX* xr = x + r * d;
 
+  // w held beside x only while both fit in 160 registers a lane
+  constexpr bool kHoldW = VPL * (4 + WORDS) <= 160;
+  constexpr int WV = kHoldW ? VPL : 1;
   uint4 xv[VPL];
-  uint32_t wv[VPL][WORDS];
+  uint32_t wv[WV][WORDS];
 #pragma unroll
   for (int k = 0; k < VPL; ++k) {
     const int i = (k * lanes + sub) * V;
     xv[k] = *reinterpret_cast<const uint4*>(xr + i);
-    load_words<WORDS>(wv[k], w + i);
+    if constexpr (kHoldW) load_words<WORDS>(wv[k], w + i);
   }
   float ss = 0.0f;
 #pragma unroll
@@ -135,11 +143,15 @@ rmsnorm_vec_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
     ss = ss + __shfl_xor_sync(0xffffffffu, ss, o);
   const float rs = vml_rsqrt(ss / (float)d + eps);
   if (!store) return;
+  // a compiler barrier: w's vectors, read again below, are not hoisted
+  // above the reduction, where they would sit in registers beside x
+  if constexpr (!kHoldW) asm volatile("" ::: "memory");
   TX* yr = y + r * d;
 #pragma unroll
   for (int k = 0; k < VPL; ++k) {
     const TX* e = reinterpret_cast<const TX*>(&xv[k]);
-    const TW* we = reinterpret_cast<const TW*>(wv[k]);
+    if constexpr (!kHoldW) load_words<WORDS>(wv[0], w + (k * lanes + sub) * V);
+    const TW* we = reinterpret_cast<const TW*>(wv[kHoldW ? k : 0]);
     uint4 packed;
     TX* o = reinterpret_cast<TX*>(&packed);
 #pragma unroll
@@ -196,6 +208,14 @@ void launch_typed(const void* x, const void* w, void* y, long long rows, int d,
     case 6: return launch_vec<TX, TW, 6>(x, w, y, rows, d, eps, lanes_log2, stream);
     case 9: return launch_vec<TX, TW, 9>(x, w, y, rows, d, eps, lanes_log2, stream);
     case 12: return launch_vec<TX, TW, 12>(x, w, y, rows, d, eps, lanes_log2, stream);
+    case 14: return launch_vec<TX, TW, 14>(x, w, y, rows, d, eps, lanes_log2, stream);
+    case 16: return launch_vec<TX, TW, 16>(x, w, y, rows, d, eps, lanes_log2, stream);
+    case 28:
+      // a bf16 row with an f32 weight at 28 vectors a lane spills even with
+      // w read again (32 bytes); it takes the scalar kernel
+      if constexpr (sizeof(TW) <= sizeof(TX))
+        return launch_vec<TX, TW, 28>(x, w, y, rows, d, eps, lanes_log2, stream);
+      [[fallthrough]];
     default: {
       const dim3 grid((unsigned)((rows + kWarps - 1) / kWarps));
       rmsnorm_scalar_kernel<TX, TW><<<grid, kThreads, 0, stream>>>(

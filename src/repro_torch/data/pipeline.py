@@ -35,9 +35,14 @@ def synth_batch(cfg: ModelConfig, batch: int, seq: int, step: int,
     half = (seq + 1) // 2
     base[:, half:half * 2] = base[:, :half]
     toks = base.astype(np.int32)
-    # the reference adds image or audio-frame embeddings for the vlm and
-    # encdec families, which wait for their port (ROADMAP A.8)
-    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    out = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    if cfg.family == "vlm":
+        out["img_embeds"] = rng.standard_normal(
+            (batch, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        out["frames"] = rng.standard_normal(
+            (batch, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def data_iterator(cfg: ModelConfig, batch: int, seq: int, *,

@@ -42,11 +42,12 @@ from ._cuda import DTYPE_CODES, CudaKernel, check_cuda_tensor, refuse_grad
 
 NEG_INF = -1e30
 BLOCK_K = 64                 # the CUDA kernel's key tile
-HEAD_DIMS = (64, 128)        # the head sizes the kernel is instantiated for
+HEAD_DIMS = (64, 112, 128)   # the head sizes the kernel is instantiated for
 #: query rows per CUDA block, by (dtype, head size): the tensor-core
-#: path's 4 warps hold 32 rows each at D = 64 and 16 at D = 128
-BLOCK_Q = {(torch.bfloat16, 64): 128, (torch.bfloat16, 128): 64,
-           (torch.float32, 64): 64, (torch.float32, 128): 64}
+#: path's 4 warps hold 32 rows each at D = 64 and 16 at D = 112 and 128
+BLOCK_Q = {(torch.bfloat16, 64): 128, (torch.bfloat16, 112): 64,
+           (torch.bfloat16, 128): 64, (torch.float32, 64): 64,
+           (torch.float32, 112): 64, (torch.float32, 128): 64}
 
 KERNEL = CudaKernel(
     "flash_attention", "flash_attention.cu", "flash_attention_launch",

@@ -5,8 +5,10 @@ The port of ``repro.launch.serve``.  Requests are submitted into the
 engine's admission queue on a staggered arrival schedule and the loop
 pumps ``step()`` until the queue drains — the submit()/step() loop a real
 serving front-end runs, exercising per-step slot refill and paged KV.
-The model is the architecture's full published config with random
-weights from ``--seed`` (``--smoke`` for the reduced one), on the first
+The model is the architecture's full published config (any of the
+reference's ten) with random weights from ``--seed`` (``--smoke`` for
+the reduced one); a vlm's image embeddings and an encdec's audio frames
+are drawn from the same seed, one row per slot.  It runs on the first
 CUDA device unless ``--device`` names another (``--device cpu`` runs the
 kernels' plain versions); with no card and no ``--device`` it raises
 :class:`~repro_torch.runtime.DeviceNotFoundError`.
@@ -36,7 +38,7 @@ from ..serving import Request, ServingEngine
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=configs.ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
@@ -65,18 +67,38 @@ def make_requests(cfg, rng: np.random.Generator, n: int, prompt_len=(4, 16),
             for _ in range(n)]
 
 
+def make_aux_inputs(cfg, rng: np.random.Generator,
+                    batch_slots: int) -> Dict[str, np.ndarray]:
+    """The model's auxiliary inputs, one row per slot, drawn from ``rng``
+    at the reference's shapes: a vlm's (stubbed) image patch embeddings
+    ``img_embeds`` (batch_slots, n_img_tokens, d), an encdec's audio
+    frame embeddings ``frames`` (batch_slots, enc_seq, d); none for the
+    other families."""
+    aux = {}
+    if cfg.family == "vlm":
+        aux["img_embeds"] = np.asarray(rng.standard_normal(
+            (batch_slots, cfg.n_img_tokens, cfg.d_model)), np.float32)
+    if cfg.family == "encdec":
+        aux["frames"] = np.asarray(rng.standard_normal(
+            (batch_slots, cfg.enc_seq, cfg.d_model)), np.float32)
+    return aux
+
+
 def make_engine(cfg, seed: int = 0, batch_slots: int = 4,
                 max_seq: int = 128, scheduler: str = "continuous",
-                device=None) -> ServingEngine:
-    """An engine over ``cfg`` with random weights from ``seed``, on the
-    first CUDA device unless ``device`` names another.  Its dispatch
-    queue and KV page pool come from a host Context whose first device is
-    that one."""
+                device=None, aux_inputs=None, params=None) -> ServingEngine:
+    """An engine over ``cfg`` with random weights from ``seed`` (or
+    ``params``, already on the device) and ``aux_inputs`` (see
+    :func:`make_aux_inputs`), on the first CUDA device unless ``device``
+    names another.  Its dispatch queue and KV page pool come from a host
+    Context whose first device is that one."""
     ctx = Context(platform=Platform(torch_device=device))
-    params = init_params(cfg, torch.Generator().manual_seed(seed),
-                         device=ctx.devices[0].torch_device)
+    if params is None:
+        params = init_params(cfg, torch.Generator().manual_seed(seed),
+                             device=ctx.devices[0].torch_device)
     return ServingEngine(cfg, params, batch_slots=batch_slots,
-                         max_seq=max_seq, context=ctx, scheduler=scheduler)
+                         max_seq=max_seq, aux_inputs=aux_inputs, context=ctx,
+                         scheduler=scheduler)
 
 
 def serve(eng: ServingEngine, requests: List[Request],
@@ -141,10 +163,11 @@ def main(argv=None) -> Dict[str, object]:
     args = parse_args(argv)
     cfg = configs.get_smoke(args.arch) if args.smoke \
         else configs.get_config(args.arch)
+    rng = np.random.default_rng(args.seed)
+    aux = make_aux_inputs(cfg, rng, args.batch_slots)
     eng = make_engine(cfg, args.seed, args.batch_slots, args.max_seq,
-                      args.scheduler, args.device)
-    reqs = make_requests(cfg, np.random.default_rng(args.seed),
-                         args.requests, new=(2, args.max_new))
+                      args.scheduler, args.device, aux)
+    reqs = make_requests(cfg, rng, args.requests, new=(2, args.max_new))
     run = serve(eng, reqs, args.arrival_every)
     report(run)
     return run

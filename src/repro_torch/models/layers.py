@@ -1,14 +1,16 @@
-"""Model layers of the dense and ssm families, in torch.
+"""Model layers of all six families, in torch.
 
-The port of the part of ``repro.models.layers`` that those models run:
-``norm`` (RMSNorm), ``activation`` (silu), ``rope``, ``attention`` (with
-and without a KV cache), the gated ``mlp`` and ``attn_block``; the
-Mamba-2 mixer (``_causal_conv``, ``mamba2``) and ``mamba_block``.  The
-math and the dtypes follow the reference (its einsums become matmuls in
-the promoted dtype); the sharding annotations (``constrain``) are
-dropped, since the port runs on one card.  Kernels are swapped in at the
-:mod:`repro_torch.kernels.ops` dispatch layer.  MoE, cross- and
-encoder-decoder blocks wait for their families (ROADMAP A.8).
+The port of ``repro.models.layers``: ``norm`` (RMSNorm, or LayerNorm
+where the block has a bias), ``activation`` (silu or tanh-approximated
+gelu), ``rope``, ``attention`` (self-attention with and without a KV
+cache, causal or not, and cross-attention to ``kv_x``), the ``mlp``
+(gated or not), the top-k ``moe`` FFN and the residual blocks
+(``attn_block``, ``cross_block``, ``encdec_block``); the Mamba-2 mixer
+(``_causal_conv``, ``mamba2``) and ``mamba_block``.  The math and the
+dtypes follow the reference (its einsums become matmuls in the promoted
+dtype); the sharding annotations (``constrain``) are dropped, since the
+port runs on one card.  Kernels are swapped in at the
+:mod:`repro_torch.kernels.ops` dispatch layer.
 """
 
 from __future__ import annotations
@@ -33,11 +35,25 @@ Params = Dict[str, torch.Tensor]
 # ---------------------------------------------------------------------------
 
 def norm(x, p: Params, cfg: ModelConfig, eps: float = 1e-6):
+    """LayerNorm in float32 where the block has a bias (``b``), as the
+    reference computes it (no kernel there either); RMSNorm otherwise."""
+    if "b" in p:                                   # layernorm
+        xf = x.to(torch.float32)
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        return (y * p["w"].to(torch.float32)
+                + p["b"].to(torch.float32)).to(x.dtype)
     return ops.rmsnorm(x, p["w"], eps=eps, use_kernels=cfg.use_kernels)
 
 
 def activation(x, cfg: ModelConfig):
-    return vml.silu(x) if cfg.use_vml_act else F.silu(x)
+    """silu, or gelu with the tanh approximation (``jax.nn.gelu``'s
+    default), from vml under ``cfg.use_vml_act``."""
+    if cfg.use_vml_act:
+        return vml.silu(x) if cfg.act == "silu" else vml.gelu_tanh(x)
+    return F.silu(x) if cfg.act == "silu" \
+        else F.gelu(x, approximate="tanh")
 
 
 def rope(x, positions, theta: float):
@@ -58,26 +74,32 @@ def rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 def attention(x, p: Params, cfg: ModelConfig, *, positions,
+              causal: bool = True, kv_x=None, use_rope: bool = True,
               cache: Optional[Tuple] = None):
-    """Causal self-attention with RoPE.  cache=(k_cache, v_cache, lengths)
-    with the caches in (B, KV, S_cache, D) layout; returns (out,
-    new_cache).
+    """Self- or cross-attention (to ``kv_x``, (B, T, d): no RoPE on its
+    keys, no cache).  cache=(k_cache, v_cache, lengths) with the caches in
+    (B, KV, S_cache, D) layout; returns (out, new_cache).
 
     With a cache, the new keys and values are written into ``k_cache``
     and ``v_cache`` in place (the reference rebuilt the caches
     functionally with ``dynamic_update_slice``); the returned caches are
-    the same tensors."""
+    the same tensors.  A cached prefill is causal whatever ``causal``
+    says, as in the reference."""
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    src = kv_x if kv_x is not None else x
+    T = src.shape[1]
     q = matmul(x, p["wq"].reshape(d, H * hd)).view(B, S, H, hd)
-    k = matmul(x, p["wk"].reshape(d, KV * hd)).view(B, S, KV, hd)
-    v = matmul(x, p["wv"].reshape(d, KV * hd)).view(B, S, KV, hd)
+    k = matmul(src, p["wk"].reshape(d, KV * hd)).view(B, T, KV, hd)
+    v = matmul(src, p["wv"].reshape(d, KV * hd)).view(B, T, KV, hd)
 
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        if kv_x is None:
+            k = rope(k, positions, cfg.rope_theta)
 
     new_cache = None
-    if cache is not None:
+    if cache is not None and kv_x is None:
         k_cache, v_cache, lengths = cache
         if S == 1:
             # decode: each batch row writes its new K/V at its OWN length
@@ -102,20 +124,19 @@ def attention(x, p: Params, cfg: ModelConfig, *, positions,
             k_cache[:, :, :S] = k.transpose(1, 2).to(k_cache.dtype)
             v_cache[:, :, :S] = v.transpose(1, 2).to(v_cache.dtype)
             new_cache = (k_cache, v_cache, lengths + S)
+    elif cfg.use_kernels and S <= 4096 and kv_x is None:
+        # the reference's Pallas branch (layers.py:130), with its layout
+        # repaired (ROADMAP §C.2): the flash kernel takes (B, H, S, D), so
+        # q/k/v go over and the output comes back
+        out = ops.attention(
+            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous(), causal=causal, use_kernels=True,
+            block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
+        ).transpose(1, 2)
     else:
-        if cfg.use_kernels and S <= 4096:
-            # the reference's Pallas branch (layers.py:130), with its
-            # layout repaired (ROADMAP §C.2): the flash kernel takes
-            # (B, H, S, D), so q/k/v go over and the output comes back
-            out = ops.attention(
-                q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-                v.transpose(1, 2).contiguous(), causal=True, use_kernels=True,
-                block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
-            ).transpose(1, 2)
-        else:
-            out = blocked_attention(q, k, v, causal=True,
-                                    block_q=cfg.attn_block_q,
-                                    block_k=cfg.attn_block_k)
+        out = blocked_attention(q, k, v, causal=causal and kv_x is None,
+                                block_q=cfg.attn_block_q,
+                                block_k=cfg.attn_block_k)
 
     y = matmul(out.reshape(B, S, H * hd), p["wo"].reshape(H * hd, d))
     return y, new_cache
@@ -126,21 +147,145 @@ def attention(x, p: Params, cfg: ModelConfig, *, positions,
 # ---------------------------------------------------------------------------
 
 def mlp(x, p: Params, cfg: ModelConfig):
-    """The gated MLP: activation(x @ w_gate) * (x @ w_up) @ w_down."""
+    """The MLP: activation(x @ w_gate) * (x @ w_up) @ w_down where it is
+    gated, activation(x @ w_up) @ w_down where not (gelu)."""
     h = matmul(x, p["w_up"])
-    h = activation(matmul(x, p["w_gate"]), cfg) * h
+    if "w_gate" in p:
+        h = activation(matmul(x, p["w_gate"]), cfg) * h
+    else:
+        h = activation(h, cfg)
     return matmul(h, p["w_down"])
 
 
+def moe_route(x, router, cfg: ModelConfig):
+    """The MoE's routing, as the reference's ``moe`` takes it: tokens in
+    groups of ``g = min(cfg.moe_group, S)`` (S padded with zero tokens to
+    a multiple, which claim no capacity), router probabilities in float32,
+    each token's top-k experts and their gates renormalized to sum to 1,
+    and each (token, k) pair's position in its expert's buffer of
+    ``C = max(1, int(g * top_k * capacity_factor / n_experts))`` slots,
+    claimed in token order, then k order.  A pair at a position >= C is
+    dropped.
+
+    Returns a dict: ``xt`` (G, g, d), ``valid`` (G, g) bool, ``probs``
+    (G, g, E), ``gate_vals`` (G, g, K) (0 on padded tokens), ``gate_idx``
+    (G, g, K), ``pos`` (G, g, K), ``keep`` (G, g, K) bool, ``C``."""
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    g = min(cfg.moe_group, S)
+    pad = (-S) % g
+    if pad:     # pad to a group multiple; padded tokens never claim capacity
+        x = F.pad(x, (0, 0, 0, pad))
+    Sp = S + pad
+    G = (B * Sp) // g
+    C = max(1, int(g * K * cfg.capacity_factor / E))
+    xt = x.reshape(G, g, d)
+    valid = (torch.arange(Sp, device=x.device) < S)[None] \
+        .expand(B, Sp).reshape(G, g)
+    logits = matmul(xt, router).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, K, dim=-1)       # (G,g,K)
+    gate_vals = gate_vals / torch.clamp(
+        gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
+    gate_vals = gate_vals * valid[..., None]
+    onehot = F.one_hot(gate_idx, E) * valid[..., None, None]  # (G,g,K,E)
+    pos = torch.cumsum(onehot.reshape(G, g * K, E), dim=1) \
+        .reshape(G, g, K, E) - 1
+    pos = (pos * onehot).sum(dim=-1)                          # (G,g,K)
+    return {"xt": xt, "valid": valid, "probs": probs,
+            "gate_vals": gate_vals, "gate_idx": gate_idx, "pos": pos,
+            "keep": pos < C, "C": C}
+
+
+def moe(x, p: Params, cfg: ModelConfig):
+    """Token-choice top-k MoE with capacity dropping (:func:`moe_route`),
+    the dispatch and the expert products as the reference's einsums, and
+    the Switch load-balancing aux loss.  Returns (y, aux).
+
+    One difference from the reference, where its aux loss is wrong
+    (ROADMAP §C.16): the reference averages the router probabilities
+    ``me`` and the expert counts ``ce`` over every token of the padded
+    groups, and a padded (zero) token routes uniformly, so the loss moves
+    with the padding; here both average over the real tokens of each
+    group.  Where S is a multiple of the group the two are the same."""
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    r = moe_route(x, p["router"], cfg)
+    xt, valid, C = r["xt"], r["valid"], r["C"]
+    G, g = valid.shape
+    # dispatch: (G, g, E, C) one-hot over (expert, slot), per k
+    disp = torch.zeros((G, g, E, C), dtype=x.dtype, device=x.device)
+    comb = torch.zeros((G, g, E, C), dtype=torch.float32, device=x.device)
+    for kk in range(K):
+        sel = F.one_hot(r["gate_idx"][..., kk], E).to(x.dtype) \
+            * (r["keep"][..., kk] & valid)[..., None].to(x.dtype)
+        # a dropped pair's position is >= C: its one-hot row is all zeros
+        slot = F.one_hot(r["pos"][..., kk].clamp(max=C), C + 1)[..., :C] \
+            .to(x.dtype)
+        contrib = sel[..., None] * slot[..., None, :]
+        disp = disp + contrib
+        comb = comb + contrib.to(torch.float32) \
+            * r["gate_vals"][..., kk, None, None]
+
+    xin = torch.einsum("gsec,gsd->egcd", *promoted(disp, xt))
+    up = torch.einsum("egcd,edf->egcf", *promoted(xin, p["w_up"]))
+    gt = torch.einsum("egcd,edf->egcf", *promoted(xin, p["w_gate"]))
+    h = activation(gt, cfg) * up
+    eo = torch.einsum("egcf,efd->egcd", *promoted(h, p["w_down"]))
+    y = torch.einsum("gsec,egcd->gsd", *promoted(comb.to(x.dtype), eo))
+
+    # load-balancing auxiliary loss (Switch-style), over the real tokens
+    vf = valid.to(torch.float32)[..., None]                 # (G,g,1)
+    n = vf.sum(dim=1)                                       # (G,1)
+    me = (r["probs"] * vf).sum(dim=1) / n                   # (G,E)
+    ce = (F.one_hot(r["gate_idx"], E).to(torch.float32).sum(dim=2)
+          * vf).sum(dim=1) / n / K
+    aux = E * torch.mean(torch.sum(me * ce, dim=-1))
+    y = y.reshape(B, -1, d)[:, :S]
+    return y, aux
+
+
 # ---------------------------------------------------------------------------
-# residual block
+# residual blocks
 # ---------------------------------------------------------------------------
 
-def attn_block(x, p: Params, cfg: ModelConfig, *, positions, cache=None):
-    """pre-norm attention + FFN block; returns (x, new_cache).  (The
-    reference also returns the MoE aux loss, always 0 in a dense block.)"""
+def attn_block(x, p: Params, cfg: ModelConfig, *, positions, causal=True,
+               use_rope=True, cache=None):
+    """pre-norm attention + FFN block (the MoE FFN where the block has a
+    router); returns (x, aux_loss, new_cache), the aux loss a float32 0
+    where there is no MoE."""
     h, new_cache = attention(norm(x, p["ln1"], cfg), p["attn"], cfg,
-                             positions=positions, cache=cache)
+                             positions=positions, causal=causal,
+                             use_rope=use_rope, cache=cache)
+    x = x + h
+    if cfg.family == "moe" and "router" in p["ffn"]:
+        h, aux = moe(norm(x, p["ln2"], cfg), p["ffn"], cfg)
+    else:
+        h = mlp(norm(x, p["ln2"], cfg), p["ffn"], cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + h, aux, new_cache
+
+
+def cross_block(x, p: Params, cfg: ModelConfig, *, kv_x, positions):
+    """Gated cross-attention block (llama-3.2-vision style): x plus
+    tanh(gate) times the attention of norm(x) to ``kv_x``."""
+    h, _ = attention(norm(x, p["ln"], cfg), p["xattn"], cfg,
+                     positions=positions, causal=False, kv_x=kv_x,
+                     use_rope=False)
+    return x + (torch.tanh(p["gate"].to(torch.float32)) * h).to(x.dtype)
+
+
+def encdec_block(x, p: Params, cfg: ModelConfig, *, enc_out, positions,
+                 cache=None):
+    """Whisper decoder block: causal self-attention (no RoPE), then
+    cross-attention to ``enc_out``, then the MLP; returns (x, new_cache)."""
+    h, new_cache = attention(norm(x, p["ln1"], cfg), p["attn"], cfg,
+                             positions=positions, causal=True,
+                             use_rope=False, cache=cache)
+    x = x + h
+    h, _ = attention(norm(x, p["lnx"], cfg), p["xattn"], cfg,
+                     positions=positions, causal=False, kv_x=enc_out,
+                     use_rope=False)
     x = x + h
     h = mlp(norm(x, p["ln2"], cfg), p["ffn"], cfg)
     return x + h, new_cache
@@ -261,5 +406,6 @@ def mamba_block(x, p: Params, cfg: ModelConfig, *, cache=None):
     return x + h, new_cache
 
 
-__all__ = ["activation", "attention", "attn_block", "mamba2", "mamba_block",
-           "mlp", "norm", "rope"]
+__all__ = ["activation", "attention", "attn_block", "cross_block",
+           "encdec_block", "mamba2", "mamba_block", "mlp", "moe",
+           "moe_route", "norm", "rope"]

@@ -1,8 +1,9 @@
 """Declarative parameter tables and initialization, in torch.
 
-The port of ``repro.models.params`` for the dense and ssm families.  One
-table per architecture declares every parameter's shape and init scale; random
-initialization reads it, drawing from an explicit ``torch.Generator``.
+The port of ``repro.models.params`` for all six families (dense, moe,
+ssm, hybrid, vlm, encdec).  One table per architecture declares every
+parameter's shape and init scale; random initialization reads it, drawing
+from an explicit ``torch.Generator``.
 The reference's logical sharding axes are dropped: the port runs on one
 card.
 
@@ -40,16 +41,17 @@ def _fan_in_scale(shape: Tuple[int, ...]) -> float:
 
 
 def _uniform(gen: torch.Generator, shape, lo: float, hi: float):
-    return torch.rand(shape, generator=gen, dtype=torch.float32) \
+    return torch.rand(shape, generator=gen, dtype=torch.float32,
+                      device=gen.device) \
         * (hi - lo) + lo
 
 
 def _init_leaf(gen: torch.Generator, d: ParamDef,
                dtype: torch.dtype) -> torch.Tensor:
     if d.init == "zeros":
-        return torch.zeros(d.shape, dtype=dtype)
+        return torch.zeros(d.shape, dtype=dtype, device=gen.device)
     if d.init == "ones":
-        return torch.ones(d.shape, dtype=dtype)
+        return torch.ones(d.shape, dtype=dtype, device=gen.device)
     if d.init == "ssm_a":       # Mamba2: A in [-1.5, -0.5]
         return (-_uniform(gen, d.shape, 0.5, 1.5)).to(dtype)
     if d.init == "ssm_dt":      # dt bias ~ softplus^-1(U(1e-3, 1e-1))
@@ -58,7 +60,8 @@ def _init_leaf(gen: torch.Generator, d: ParamDef,
     if d.init != "normal":
         raise ValueError(f"unknown init {d.init!r}")
     scale = d.scale if d.scale is not None else _fan_in_scale(d.shape)
-    x = torch.randn(d.shape, generator=gen, dtype=torch.float32) * scale
+    x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
+                    device=gen.device) * scale
     return x.to(dtype)
 
 
@@ -71,14 +74,16 @@ def _map(fn, tree):
 def init_params(defs: ParamTree, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32,
                 device: Union[str, torch.device] = "cpu") -> ParamTree:
-    """Random parameters for ``defs``, drawn on the CPU from
-    ``generator`` in table order and moved to ``device``, so a seed gives
-    the same weights on every device."""
+    """Random parameters for ``defs``, drawn from ``generator`` in table
+    order on the generator's device and moved to ``device``.  A CPU
+    generator gives the same weights on every device; a CUDA generator
+    draws billions of parameters in a second where the host takes a
+    minute, and gives the same weights on every card of its kind."""
     return _map(lambda d: _init_leaf(generator, d, dtype).to(device), defs)
 
 
 # ---------------------------------------------------------------------------
-# the dense and ssm families' tables
+# per-family parameter tables
 # ---------------------------------------------------------------------------
 
 def _stack(n: int, d: ParamDef) -> ParamDef:
@@ -106,12 +111,25 @@ def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 def mlp_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
-    """The gated (silu) MLP."""
+    """The MLP: gated (``w_gate``) for silu, not for gelu."""
     d, f = cfg.d_model, cfg.d_ff
-    return {
+    out = {
         "w_up": ParamDef((d, f)),
         "w_down": ParamDef((f, d), scale=_resid_scale(cfg, f)),
-        "w_gate": ParamDef((d, f)),
+    }
+    if cfg.act == "silu":       # gated
+        out["w_gate"] = ParamDef((d, f))
+    return out
+
+
+def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    """The MoE FFN: a router and ``n_experts`` gated expert MLPs."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": ParamDef((d, E), scale=0.02),
+        "w_up": ParamDef((E, d, f)),
+        "w_gate": ParamDef((E, d, f)),
+        "w_down": ParamDef((E, f, d), scale=_resid_scale(cfg, f)),
     }
 
 
@@ -142,40 +160,73 @@ def mamba2_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 def _norm(cfg: ModelConfig) -> Dict[str, ParamDef]:
-    return {"w": ParamDef((cfg.d_model,), init="ones")}
+    """RMSNorm's weight, and LayerNorm's bias beside it."""
+    out = {"w": ParamDef((cfg.d_model,), init="ones")}
+    if cfg.norm == "layernorm":
+        out["b"] = ParamDef((cfg.d_model,), init="zeros")
+    return out
 
 
 def block_defs(cfg: ModelConfig, kind: str = "attn") -> Dict[str, object]:
-    """One residual block: pre-norm + attention + pre-norm + MLP
-    (``"attn"``), or pre-norm + Mamba-2 mixer (``"mamba"``)."""
+    """One residual block: pre-norm + attention + pre-norm + FFN (MLP, or
+    MoE in the moe family) (``"attn"``), pre-norm + Mamba-2 mixer
+    (``"mamba"``), or the gated cross-attention block (``"cross"``)."""
     if kind == "attn":
+        ffn = moe_defs(cfg) if cfg.family == "moe" else mlp_defs(cfg)
         return {"ln1": _norm(cfg), "attn": attn_defs(cfg),
-                "ln2": _norm(cfg), "ffn": mlp_defs(cfg)}
+                "ln2": _norm(cfg), "ffn": ffn}
     if kind == "mamba":
         return {"ln1": _norm(cfg), "mixer": mamba2_defs(cfg)}
+    if kind == "cross":
+        return {"ln": _norm(cfg), "xattn": attn_defs(cfg),
+                "gate": ParamDef((1,), init="zeros")}
     raise ValueError(kind)
 
 
-#: the families ported, each with its block kind
-_FAMILY_BLOCKS = {"dense": "attn", "ssm": "mamba"}
-
-
 def model_defs(cfg: ModelConfig) -> ParamTree:
-    """Full parameter table of a dense model with RMSNorm and a gated silu
-    MLP, or of a Mamba-2 (ssm) model with RMSNorm (the kinds ported)."""
-    if cfg.family not in _FAMILY_BLOCKS or (cfg.norm, cfg.act) != \
-            ("rmsnorm", "silu"):
-        raise NotImplementedError(
-            f"{cfg.family} model with {cfg.norm} and {cfg.act}: only the "
-            f"dense and ssm rmsnorm/silu families are ported (ROADMAP A.8)")
+    """Full parameter table for any of the six families."""
     out: ParamTree = {
         "embed": ParamDef((cfg.padded_vocab, cfg.d_model), scale=0.02),
         "ln_f": _norm(cfg),
     }
     if not cfg.tie_embeddings:
         out["unembed"] = ParamDef((cfg.d_model, cfg.padded_vocab))
-    out["layers"] = _map(lambda p: _stack(cfg.n_layers, p),
-                         block_defs(cfg, _FAMILY_BLOCKS[cfg.family]))
+
+    L = cfg.n_layers
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        out["layers"] = _map(lambda p: _stack(L, p), block_defs(cfg, "attn"))
+    elif fam in ("ssm", "hybrid"):
+        out["layers"] = _map(lambda p: _stack(L, p), block_defs(cfg, "mamba"))
+        if fam == "hybrid":
+            # zamba2-style single SHARED attention block, applied every
+            # ``attn_every`` mamba blocks: its parameters are not stacked
+            out["shared_attn"] = block_defs(cfg, "attn")
+    elif fam == "vlm":
+        every = cfg.cross_attn_every
+        if L % every:
+            raise ValueError(f"vlm: n_layers {L} is not a multiple of "
+                             f"cross_attn_every {every}")
+        n_groups = L // every
+        # self-attention decoder layers grouped (n_groups, every, ...)
+        out["layers"] = _map(
+            lambda p: ParamDef((n_groups, every) + p.shape, p.init, p.scale),
+            block_defs(cfg, "attn"))
+        out["cross"] = _map(lambda p: _stack(n_groups, p),
+                            block_defs(cfg, "cross"))
+    elif fam == "encdec":
+        out["layers"] = _map(          # decoder: self + cross + ffn
+            lambda p: _stack(L, p), {**block_defs(cfg, "attn"),
+                                     "lnx": _norm(cfg),
+                                     "xattn": attn_defs(cfg)})
+        out["enc_layers"] = _map(lambda p: _stack(cfg.enc_layers, p),
+                                 block_defs(cfg, "attn"))
+        out["ln_enc"] = _norm(cfg)
+        out["pos_embed"] = ParamDef((4096, cfg.d_model), scale=0.02)
+        out["enc_pos_embed"] = ParamDef((cfg.enc_seq, cfg.d_model),
+                                        scale=0.02)
+    else:
+        raise ValueError(f"unknown family {fam!r}")
     return out
 
 
@@ -217,4 +268,4 @@ def state_from_jax(state: Mapping, cfg: ModelConfig,
 
 
 __all__ = ["ParamDef", "block_defs", "init_params", "mamba2_defs",
-           "model_defs", "params_from_jax", "state_from_jax"]
+           "model_defs", "moe_defs", "params_from_jax", "state_from_jax"]

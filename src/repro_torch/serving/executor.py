@@ -69,24 +69,25 @@ class BatchExecutor:
 # ---------------------------------------------------------------------------
 
 #: families whose caches carry a recurrent state that padding would change
-_RECURRENT = ("ssm",)
+_RECURRENT = ("ssm", "hybrid")
 
 
 class TorchExecutor(BatchExecutor):
     """Prefill / insert / decode over ``repro_torch.models.forward``: the
     counterpart of the reference's ``JaxExecutor``, run eagerly.
 
-    * prefill: batch-1.  The dense family pads the prompt to a
+    * prefill: batch-1.  The attention families pad the prompt to a
       power-of-two bucket (floor ``prefill_bucket``) — the reference's
       bucketing, which keeps the shapes the kernels and the matmuls see
       to a handful.  Padding is exact there: the prompt is left-aligned,
       the first token is read at the *true* last position, and the cache
       length is overridden to the true length, so junk K/V beyond it is
       masked out (and overwritten by decode).  A family that carries a
-      recurrent state (ssm) prefills at the prompt's exact length: padded
-      tokens would enter its SSD state and conv window, which no length
-      masks (the reference's ``JaxExecutor`` buckets them all; ROADMAP
-      C.5).  Running eagerly, the port gains nothing from fewer shapes.
+      recurrent state (ssm, hybrid) prefills at the prompt's exact
+      length: padded tokens would enter its SSD state and conv window,
+      which no length masks (the reference's ``JaxExecutor`` buckets them
+      all; ROADMAP C.5).  Running eagerly, the port gains nothing from
+      fewer shapes.
     * insert: copies a batch-1 cache fragment into one row of the batch
       cache along each leaf's batch axis (from
       :func:`repro_torch.models.cache_logical_axes`), in place — the
@@ -96,22 +97,23 @@ class TorchExecutor(BatchExecutor):
       so they never grow or attend.
 
     The model runs on the device its parameters are on, under
-    ``torch.inference_mode``.  The dense family takes no auxiliary
-    inputs.  The compute-dtype view
-    of the parameters (:func:`repro_torch.models.model._cast`) is made
-    once here instead of on every forward.
+    ``torch.inference_mode``.  ``aux_inputs`` (the vlm's ``img_embeds``,
+    the encdec's ``frames``; arrays or tensors with one row per slot) go
+    to the device once; a prefill takes row ``slot`` of each, a decode
+    step all of them, as the reference's executor does.  The
+    compute-dtype view of the parameters
+    (:func:`repro_torch.models.model._cast`) is made once here instead of
+    on every forward.
     """
 
     def __init__(self, cfg, params, batch_slots: int, max_seq: int,
                  aux_inputs: Optional[Dict] = None, prefill_bucket: int = 8):
-        if aux_inputs:
-            raise NotImplementedError(
-                "auxiliary model inputs belong to families that are not "
-                "ported yet (ROADMAP A.8)")
         self.cfg = cfg
         self.batch_slots, self.max_seq = batch_slots, max_seq
         self.device = params["embed"].device
         self.params = _cast(params, cfg)
+        self.aux = {k: torch.as_tensor(v, device=self.device)
+                    for k, v in (aux_inputs or {}).items()}
         self.prefill_bucket = max(1, prefill_bucket)
         self._axes = cache_logical_axes(cfg)
         self._prefill_shapes: set = set()
@@ -146,9 +148,10 @@ class TorchExecutor(BatchExecutor):
         with torch.inference_mode():
             caches = init_caches(self.cfg, 1, self.max_seq,
                                        device=self.device)
+            aux = {k: v[slot:slot + 1] for k, v in self.aux.items()}
             logits, _, caches = forward(
                 self.params, torch.from_numpy(toks).to(self.device),
-                self.cfg, caches=caches, mode="prefill")
+                self.cfg, aux_inputs=aux, caches=caches, mode="prefill")
             tok = int(torch.argmax(logits[0, plen - 1]))
             caches["len"] = torch.full_like(caches["len"], plen)
         return caches, tok
@@ -170,7 +173,8 @@ class TorchExecutor(BatchExecutor):
             toks = torch.as_tensor(np.asarray(tokens, np.int64),
                                    device=self.device)[:, None]
             logits, _, state = forward(self.params, toks, self.cfg,
-                                             caches=state, mode="decode")
+                                       aux_inputs=self.aux, caches=state,
+                                       mode="decode")
             tok = torch.argmax(logits[:, -1], dim=-1)
             occ = torch.as_tensor(np.asarray(occupied, bool),
                                   device=self.device)

@@ -161,9 +161,14 @@ class Trainer:
         return int(self.state["step"])
 
     def _batch(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device,
-                                                     torch.int64)
-                for k, v in batch.items()}
+        """The batch on the device: token ids as int64, the auxiliary
+        embeddings (``img_embeds``, ``frames``) in their float dtype."""
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(np.asarray(v))
+            out[k] = t.to(self.device, torch.int64 if not
+                          t.is_floating_point() else t.dtype)
+        return out
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -180,7 +180,7 @@ def test_p_operand_keeps_sixteen_bits_of_p():
         > 2.0 ** -10
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 112, 128])
 def test_bf16_plain_scales_the_scores_after_the_product(D):
     """sm_scale = 1/sqrt(D) on the f32 scores: the lse of a bfloat16 call
     is that of the float32 products of the same values, scaled after."""
@@ -196,8 +196,10 @@ def test_bf16_plain_scales_the_scores_after_the_product(D):
 
 
 @pytest.mark.parametrize("dtype,D,rows", [(torch.bfloat16, 64, 128),
+                                          (torch.bfloat16, 112, 64),
                                           (torch.bfloat16, 128, 64),
                                           (torch.float32, 64, 64),
+                                          (torch.float32, 112, 64),
                                           (torch.float32, 128, 64)])
 def test_block_q_names_every_dtype_and_head_size_the_kernel_takes(dtype, D,
                                                                   rows):

@@ -87,9 +87,12 @@ def _t(a, dtype, dev):
 
 #: rmsnorm at the models' widths (smollm d 576; mamba2 d 1536 and 3072),
 #: at a decode step's rows, a prefill's and the training forward's, and
-#: two widths that take no 16-byte vector (the scalar kernel)
+#: two widths that take no 16-byte vector (the scalar kernel); then zamba2's
+#: d 3584 and gated 7168 and llama-3.2-vision's 4096 (14, 28 and 16
+#: vectors a lane in bf16) at a decode step's rows and a prefill's
 RMS_SHAPES = [(rows, d) for d in (576, 1536, 3072) for rows in (8, 512, 16384)] \
-    + [(5, 20), (3, 7)]
+    + [(5, 20), (3, 7)] \
+    + [(rows, d) for d in (3584, 4096, 7168) for rows in (8, 512)]
 
 
 @pytest.mark.cuda
@@ -126,6 +129,12 @@ DECODE_SHAPES = [
     (5, 9, 3, 64, 1024),
     (3, 6, 2, 64, 300),
     (2, 32, 1, 64, 384),
+    # the new families' decode steps: zamba2's shared attention (32 over
+    # 32 heads of 112), granite-moe, llama-3.2-vision, whisper's decoder
+    (8, 32, 32, 112, 2048),
+    (8, 24, 8, 64, 2048),
+    (8, 32, 8, 128, 2048),
+    (8, 12, 12, 64, 448),
 ]
 SPLIT_EDGES = (5, 9, 3, 64, 1024)    # lengths keys_per_split - 1, + 0, + 1
 ALL_EMPTY = (3, 6, 2, 64, 300)       # every length 0
@@ -285,6 +294,7 @@ SSD_SHAPES = [
     (3, 37, 6, 16, 3, 16, 8),
     (2, 70, 4, 13, 1, 21, 32),
     (1, 100, 2, 80, 2, 32, 16),
+    (1, 512, 112, 64, 1, 64, 64),   # zamba2-7b's served prefill
 ]
 
 
@@ -405,6 +415,9 @@ FLASH_SHAPES = [
     (2, 4, 1, 1, 129, 128),
     (2, 4, 2, 77, 93, 128),     # D = 128, Sq and Sk not multiples of 16
     (2, 6, 3, 37, 50, 64),      # Sq < 64: one partial q tile
+    (1, 32, 32, 512, 512, 112),  # zamba2's shared attention, D = 112
+    (2, 4, 2, 77, 93, 112),     # D = 112, GQA, ragged
+    (1, 12, 12, 1500, 1500, 64),  # whisper-small's encoder
 ]
 
 
@@ -503,17 +516,19 @@ def ptxas_spills(source, tmp_path):
 def test_redesigned_kernels_build_without_spills(dev, tmp_path, kernel):
     """Every kernel function of the source keeps its registers: ssd_scan's
     bfloat16 kernels (the two on tensor cores and the hand-off's two
-    widths), rmsnorm's one-pass kernel at its three vectors per lane and
-    its scalar kernel, each in four dtype pairs.  ssd_scan's float32 scan
+    widths), rmsnorm's one-pass kernel at its six vectors per lane and
+    its scalar kernel, each in four dtype pairs (but 28 vectors a lane,
+    not built for a bfloat16 x with a float32 w).  ssd_scan's float32 scan
     (``ssd_scan_kernel``) is the first design, kept as it was, and is not
     held to it."""
     source = {k.name: k for k in KERNELS}[kernel].source_path
     spills = ptxas_spills(source, tmp_path)
     checked = {f: v for f, v in spills.items()
                if kernel != "ssd_scan" or "ssd_scan_kernel" not in f}
-    expect = 4 if kernel == "ssd_scan" else 4 * (3 + 1)
+    expect = 4 if kernel == "ssd_scan" else 4 * (6 + 1) - 1
     assert len(checked) == expect, sorted(spills)
-    assert all(v == (0, 0) for v in checked.values()), checked
+    spilled = {f: v for f, v in checked.items() if v != (0, 0)}
+    assert not spilled, spilled
 
 
 @pytest.mark.cuda

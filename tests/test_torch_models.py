@@ -229,13 +229,16 @@ def test_configs_registry():
         == same
     assert all(getattr(full, n) == getattr(ref, n) for n in same)
     assert full.use_kernels is True
-    assert tconfigs.ARCH_IDS == [ARCH, SSM_ARCH]
-    with pytest.raises(KeyError, match="ROADMAP A.8"):
-        tconfigs.get_config("zamba2-7b")
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS and len(tconfigs.ARCH_IDS) \
+        == 10
+    for arch in jconfigs.ARCH_IDS:
+        t, j = tconfigs.get_config(arch), jconfigs.get_config(arch)
+        assert all(getattr(t, n) == getattr(j, n) for n in same), arch
     with pytest.raises(KeyError, match="unknown"):
         tconfigs.get_config("gpt-9")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        model_defs(dataclasses.replace(full, act="gelu"))
+    # a gelu model's MLP is not gated, as the reference's
+    gelu = model_defs(dataclasses.replace(full, act="gelu"))
+    assert set(gelu["layers"]["ffn"]) == {"w_up", "w_down"}
 
 
 # ---------------------------------------------------------------------------

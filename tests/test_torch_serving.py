@@ -672,10 +672,11 @@ def test_mamba2_torch_executor_matches_jax_executor(dtype, tol):
         _same_or_near_tie(t_stream, r_stream, p, _ref_logits(jcfg, jp), tol)
 
 
-@pytest.mark.parametrize("arch", [ARCH, SSM_ARCH])
+@pytest.mark.parametrize("arch", [ARCH, SSM_ARCH] + [
+    a for a in jconfigs.ARCH_IDS if a not in (ARCH, SSM_ARCH)])
 def test_cache_bytes_equal_the_jax_executors(arch):
     """The page sizing reads ``cache_bytes``: it is the sum over every
-    cache leaf, as the reference's, for either family."""
+    cache leaf, as the reference's, for every family."""
     jcfg, tcfg = jconfigs.get_smoke(arch), tconfigs.get_smoke(arch)
     tp = init_params(tcfg, torch.Generator().manual_seed(0))
     tex = tserving.TorchExecutor(tcfg, tp, batch_slots=2, max_seq=16)
@@ -716,3 +717,158 @@ def test_serve_cli_mamba2_on_cpu(capsys):
     assert len(out["done"]) == 3 and all(r.done for r in out["done"])
     assert out["device"] == "cpu"
     assert capsys.readouterr().out.startswith("served 3 requests")
+
+
+# ---------------------------------------------------------------------------
+# the hybrid, vlm and encdec families through TorchExecutor
+# ---------------------------------------------------------------------------
+
+def _family_params(arch, dtype, seed):
+    """Smoke params of ``arch`` for both packages; a vlm's cross-attention
+    gates drawn from N(0, 1) (zeros at init: the image would reach no
+    logit)."""
+    jcfg = jconfigs.get_smoke(arch, dtype=dtype)
+    tcfg = tconfigs.get_smoke(arch, dtype=dtype)
+    jp = jinit_params(jcfg, jax.random.PRNGKey(seed))
+    if jcfg.family == "vlm":
+        jp["cross"]["gate"] = jnp.asarray(np.random.default_rng(seed).normal(
+            size=jp["cross"]["gate"].shape), jnp.float32)
+    return jcfg, tcfg, jp, params_from_jax(jax.tree.map(np.asarray, jp),
+                                           tcfg)
+
+
+def _serve_both(jcfg, tcfg, jp, tp, prompts, budgets, aux, slots=2):
+    def serve(eng, Request):
+        reqs = [Request(prompt=p.copy(), max_new_tokens=m)
+                for p, m in zip(prompts, budgets)]
+        pending = list(reqs)
+        while pending or eng.scheduler_stats["waiting"] or \
+                eng.scheduler_stats["running"]:
+            if pending and eng.current_step % 2 == 0:
+                eng.submit(pending.pop(0))
+            eng.step()
+        return [r.out_tokens for r in reqs]
+
+    jeng = jserving.ServingEngine(jcfg, jp, BASELINE_RULES, batch_slots=slots,
+                                  max_seq=32, aux_inputs=aux,
+                                  context=jrt.Context())
+    teng = _cpu_engine(tcfg, tp, slots, 32, aux_inputs=aux)
+    return jeng, serve(jeng, jserving.Request), serve(teng, tserving.Request)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-small"])
+def test_torch_executor_with_aux_inputs_matches_jax_executor(arch):
+    """Image or frame embeddings, one row per slot (the reference's
+    ``launch/serve.py`` draws them so): a prefill reads its slot's row, a
+    decode step every row.  Float32, where the two differ by rounding;
+    a near-tie of the reference's top two logits may part the streams."""
+    jcfg, tcfg, jp, tp = _family_params(arch, "float32", 4)
+    rng = np.random.default_rng(13)
+    aux = tserve.make_aux_inputs(tcfg, rng, 2)
+    assert set(aux) == ({"img_embeds"} if tcfg.family == "vlm"
+                        else {"frames"})
+    prompts = [rng.integers(0, tcfg.vocab, int(n)).astype(np.int32)
+               for n in (5, 11, 3, 8)]
+    budgets = [6, 4, 7, 5]
+    _, ref, got = _serve_both(jcfg, tcfg, jp, tp, prompts, budgets, aux)
+    for p, r_stream, t_stream in zip(prompts, ref, got):
+        assert len(t_stream) == len(r_stream)
+        if t_stream == r_stream:
+            continue
+        k = next(j for j, (a, b) in enumerate(zip(r_stream, t_stream))
+                 if a != b)
+        # the slot the request ran in is not known here: the near-tie is
+        # looked for under every row's inputs
+        seq = jnp.asarray([list(int(t) for t in p) + list(r_stream)],
+                          jnp.int32)
+        gaps = []
+        for row in range(2):
+            a = {key: jnp.asarray(v[row:row + 1]) for key, v in aux.items()}
+            lg, _, _ = jforward(jp, seq, jcfg, BASELINE_RULES, aux_inputs=a,
+                                mode="train")
+            top2 = np.sort(np.asarray(lg[0, len(p) - 1 + k]))[-2:]
+            gaps.append(top2[1] - top2[0])
+        assert min(gaps) < 1e-5, (p.tolist(), k, r_stream, t_stream)
+
+
+def test_encdec_enc_out_carries_from_prefill_into_decode():
+    """The prefill's fragment holds the encoder's output of its slot's
+    frames; insert puts it in the slot's row of the batch cache (in the
+    cache's bfloat16), and decode reads it there: a zeroed row changes
+    that slot's next token logits."""
+    _, tcfg, _, tp = _family_params("whisper-small", "float32", 5)
+    aux = tserve.make_aux_inputs(tcfg, np.random.default_rng(5), 2)
+    ex = tserving.TorchExecutor(tcfg, tp, batch_slots=2, max_seq=32,
+                                aux_inputs=aux)
+    st = ex.init_state()
+    assert st["enc_out"].shape == (2, tcfg.enc_seq, tcfg.d_model)
+    frag, tok = ex.prefill(np.arange(6, dtype=np.int32) + 1, 1)
+    assert frag["enc_out"].shape == (1, tcfg.enc_seq, tcfg.d_model)
+    with torch.inference_mode():
+        from repro_torch.models.model import _encode_audio
+        want = _encode_audio(ex.params, torch.as_tensor(aux["frames"][1:2]),
+                             tcfg)
+    torch.testing.assert_close(frag["enc_out"], want)
+    st = ex.insert(st, frag, 1)
+    assert torch.equal(st["enc_out"][1], frag["enc_out"][0].to(torch.bfloat16))
+    assert not bool(st["enc_out"][0].any())
+    kept = {k: v.clone() for k, v in st.items()}
+    _, out = ex.decode(st, np.array([0, tok]), np.array([False, True]))
+    kept["enc_out"][1] = 0
+    with torch.inference_mode():
+        a, _, _ = forward(ex.params, torch.tensor([[0], [tok]]), tcfg,
+                          aux_inputs=ex.aux, caches={k: v.clone() for k, v
+                                                     in st.items()},
+                          mode="decode")
+    assert out.shape == (2,)
+    with torch.inference_mode():
+        z, _, _ = forward(ex.params, torch.tensor([[0], [tok]]), tcfg,
+                          aux_inputs=ex.aux, caches=kept, mode="decode")
+    assert float((a[1] - z[1]).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2.0 ** -4),
+                                       ("float32", 1e-5)])
+def test_hybrid_torch_executor_matches_jax_executor(dtype, tol):
+    """zamba2's smoke model on prompts whose length is its own bucket and
+    a multiple of ``ssm_chunk`` (8 and 16), where the reference's padded
+    prefill is exact (ROADMAP C.5); a near-tie of the reference's top two
+    logits may part the streams."""
+    jcfg, tcfg, jp, tp = _family_params("zamba2-7b", dtype, 1)
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, tcfg.vocab, int(n)).astype(np.int32)
+               for n in (8, 16, 8)]
+    budgets = [5, 4, 6]
+    jeng, ref, got = _serve_both(jcfg, tcfg, jp, tp, prompts, budgets, {})
+    assert all(jeng._exec.bucket(len(p)) == len(p) for p in prompts)
+    for p, r_stream, t_stream in zip(prompts, ref, got):
+        _same_or_near_tie(t_stream, r_stream, p, _ref_logits(jcfg, jp), tol)
+
+
+@pytest.mark.parametrize("plen", [1, 5, 13])
+def test_hybrid_executor_prefills_at_the_exact_length(plen):
+    """A hybrid prompt is prefilled at its exact length (its mamba states
+    would take in padding), and the stream equals the teacher-forced
+    forward without a cache."""
+    _, tcfg, _, tp = _family_params("zamba2-7b", "float32", 2)
+    prompt = np.random.default_rng(200 + plen).integers(
+        0, tcfg.vocab, plen).astype(np.int32)
+    eng = _cpu_engine(tcfg, tp, 2, 64)
+    req = tserving.Request(prompt=prompt.copy(), max_new_tokens=4)
+    eng.generate([req])
+    assert req.done and len(req.out_tokens) == 4
+    assert eng._exec._prefill_shapes == {plen}
+    port = _port_logits(tcfg, tp)
+    # the served decode reads bfloat16 keys, the forward float32 ones
+    _same_or_near_tie(req.out_tokens, _greedy(port, prompt, 4), prompt,
+                      port, 1e-2)
+
+
+def test_serve_cli_runs_every_architecture_on_cpu(capsys):
+    for arch in tconfigs.ARCH_IDS:
+        out = tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                           "--requests", "2", "--max-new", "3"])
+        assert len(out["done"]) == 2 and all(r.done for r in out["done"]), \
+            arch
+    with pytest.raises(SystemExit):
+        tserve.main(["--arch", "gpt-9", "--smoke", "--device", "cpu"])
