@@ -24,7 +24,10 @@ performance-portability scoreboard over the targets at the card's sizes
 Mamba-2 blocks and one shared attention block, through ``rmsnorm``,
 ``ssd_scan`` and ``decode_attention``), granite-moe-3b-a800m (moe),
 whisper-small (encdec: its encoder through ``flash_attention`` in every
-prefill) and llama-3.2-vision-11b (vlm).
+prefill) and llama-3.2-vision-11b (vlm) — and training every family:
+mamba2-780m at full width and depth through ``ssd_scan`` (its gradient
+that of the reference's scan), then the hybrid, moe, encdec and vlm
+families at full width.
 Each phase prints one JSON line
 or more; any mismatch, build error or launch error raises and the script
 exits non-zero.
@@ -237,30 +240,51 @@ exits non-zero.
      full width and depth (81 Mamba-2 blocks of d 3584, 112 SSD heads of
      64, state 64; one shared attention block of 32/32 heads x 112 after
      every 6th, 13 applications; vocab 32000; 6.75 B parameters drawn
-     from seed 0 on the host) with 8 slots and a 2048-token limit serves 8
-     requests (prompts of 32-512 tokens, each prefilled at its exact
-     length, 16-32 new tokens, one arrival every 2 steps): the seconds
-     spent drawing the weights, requests and tokens served, wall seconds,
-     tok/s, the median decode-step time, ``max_memory_allocated`` and
+     from seed 0 with the card's generator) with 8 slots and a
+     2048-token limit serves 8 requests (prompts of 32-512 tokens, each
+     prefilled at its exact length, 16-32 new tokens, one arrival every 2
+     steps): the seconds spent drawing the weights, requests and tokens
+     served, wall seconds, tok/s, the median decode-step time, the
+     seconds of each part of the phase, ``max_memory_allocated`` and
      the launch counts of ``rmsnorm``, ``ssd_scan`` and
      ``decode_attention`` (each must be > 0); one request re-run alone
      must give the same stream; one 64-token prefill and 8 decode steps
      of 8 rows against the plain versions' run, in bfloat16 within a
      number of bfloat16 ulps at the logits' largest size and in float32
      (same weights) within ``atol=1e-3``, which the prefill state one
-     token short and decode attention one key short must each fail; 5
-     decode steps profiled as in phase 6;
+     token short and decode attention one key short must each fail; 2
+     decode steps profiled as in phase 6 (the profiler's bookkeeping of
+     ~22,000 launches a step took 58 of the phase's 123 s for 5 steps
+     on an H100 80GB HBM3 at 700 W, PERF.md §6);
  18. the other families (main path), each the same way at full width:
      granite-moe-3b-a800m (32 layers, 40 experts top-8; fault: every
      token's k-th expert dropped from the combine), whisper-small (12 +
      12 layers, frames (8, 1500, 768) from the seed; ``flash_attention``
      must run in its encoder; fault: the encoder's output shifted by one
-     frame) and llama-3.2-vision-11b at 10 of its 40 layers (2
-     cross-attention groups, image embeddings (8, 1600, 4096) from the
+     frame) and llama-3.2-vision-11b at 5 of its 40 layers (1
+     cross-attention group, image embeddings (8, 1600, 4096) from the
      seed, the gates drawn from N(0, 1); fault: a neighbouring slot's
      image); 4 requests each (prompts of 32-256 tokens, 16-32 new);
- 19. the kernels line (each kernel with the shapes it ran at), then the
-     card's name and power limit, then the result line.
+ 19. training mamba2-780m (main path): ``repro_torch.launch.train`` at
+     full width and depth (48 Mamba-2 blocks of d 1536, 48 SSD heads of
+     64, state 128, 0.86 B parameters) for 20 steps of 8 x 2048 tokens,
+     as phase 11: ``ssd_scan`` must launch 2 x 48 x 20 times (the
+     forward and each block's recompute; its backward is the gradient of
+     the reference's scan, in torch) and ``rmsnorm`` at least once, the
+     loss must fall by ``LOSS_DROP``; one step profiled;
+ 20. phase 12's check on mamba2-780m at full width in float32, batch 2 x
+     2048; the planted fault: ``SSDScan``'s backward recomputing with dt
+     one step off (the loss must still agree, the gradients must not);
+ 21. the other families trained at full width (main path): zamba2-7b at
+     12 of 81 layers (two applications of the shared block), granite-moe-
+     3b-a800m at 16 of 32, whisper-small whole (448 decoder tokens over
+     1500 frames), llama-3.2-vision-11b at 5 of 40 (one cross-attention
+     group, 1600 image tokens), weights drawn with the card's generator:
+     5 steps each, finite losses, the last below the first, each kernel
+     of the family's path launched; then phase 20's check at batch 1;
+ 22. the kernels line (each kernel with the shapes it ran at, ssd_scan's
+     and rmsnorm's phase-19 launches beside), then the card's name and
+     power limit, then the result line.
 
 Launch counts are set to 0 just before each main-path phase and read
 just after it; launches made to compare a kernel with its plain version
@@ -329,7 +353,10 @@ RMS_CASES = [(8, 576, "bfloat16", "bfloat16"), (8, 576, "bfloat16", "float32"),
              # the new families' widths: zamba2's layer norm (3584) and gated
              # norm (7168), the float32 model's 3584, llama-3.2-vision's 4096
              (8, 3584, "bfloat16", "bfloat16"), (8, 7168, "bfloat16", "bfloat16"),
-             (8, 3584, "float32", "float32"), (8, 4096, "bfloat16", "bfloat16")]
+             (8, 3584, "float32", "float32"), (8, 4096, "bfloat16", "bfloat16"),
+             # mamba2-780m's training forward: 16,384 rows at d 1536 and 3072
+             (16384, 1536, "bfloat16", "bfloat16"),
+             (16384, 3072, "bfloat16", "bfloat16")]
 # decode attention, bfloat16 q: both sides read the same cache values,
 # accumulate in float32 and round once, so one bfloat16 ulp.  Cases (B, H,
 # Hkv, D, S): smollm's serving shape first (its time is the kernels
@@ -367,7 +394,10 @@ SSM_LOGIT_ATOL_F32 = 1e-3
 # bfloat16 ulp
 SSD_CASES = [(1, 512, 48, 64, 1, 128, 64), (4, 2048, 48, 64, 1, 128, 64),
              (2, 1000, 48, 64, 4, 128, 64),
-             (1, 512, 112, 64, 1, 64, 64)]    # zamba2-7b's served prefill
+             (1, 512, 112, 64, 1, 64, 64),    # zamba2-7b's served prefill
+             (8, 2048, 48, 64, 1, 128, 64),   # mamba2-780m's training step
+             (4, 2048, 112, 64, 1, 64, 64)]   # zamba2-7b's (phase 21)
+SSD_TRAINING = SSD_CASES[4:]    # bf16: SSDScan's backward timed too
 SSD_F32_TOL = {"rtol": 1e-5, "atol": 1e-5}
 SSD_Y_BF16_TOL = {"rtol": 2.0 ** -7, "atol": 1e-6}
 
@@ -385,7 +415,9 @@ FLASH_CASES = [((8, 9, 3, 2048, 2048, 64), "bfloat16", True),
                ((2, 9, 3, 1000, 1000, 64), "float32", True),
                ((1, 32, 32, 512, 512, 112), "bfloat16", True),
                ((2, 32, 32, 256, 256, 112), "float32", True),
-               ((1, 12, 12, 1500, 1500, 64), "bfloat16", False)]
+               ((1, 12, 12, 1500, 1500, 64), "bfloat16", False),
+               # zamba2-7b's shared attention in training (phase 21)
+               ((4, 32, 32, 2048, 2048, 112), "bfloat16", True)]
 FLASH_F32_TOL = {"rtol": 1e-5, "atol": 1e-5}
 FLASH_BF16_TOL = {"rtol": 2.0 ** -7, "atol": 1e-5}
 
@@ -405,6 +437,38 @@ LOSS_DROP = 1.0             # nats, step 0 against the mean of the last 5
 GRAD_CHECK = {"arch": "smollm-135m", "batch": 2, "seq": 2048, "seed": 1}
 GRAD_REL_TOL = 1e-3
 LOSS_REL_TOL = 1e-5
+# phase 19: training mamba2-780m at full width and depth (through
+# repro_torch.launch.train), as phase 11 trains smollm: ssd_scan's kernel
+# in every forward and every block's recompute, the gradient of the
+# reference's scan behind it
+TRAIN_SSM = {"arch": "mamba2-780m", "steps": 20, "batch": 8, "seq": 2048,
+             "remat": "block", "lr": 3e-4, "seed": 0}
+# phase 20: phase 12's check on mamba2-780m at full width (its weights
+# drawn with the card's generator), with phase 12's limits; the planted
+# fault is SSDScan's backward recomputing with dt one step off, the
+# forward untouched (the loss must agree, the gradients must not)
+GRAD_CHECK_SSM = {"arch": "mamba2-780m", "batch": 2, "seq": 2048, "seed": 1}
+# phase 21: the other four families trained at full width, depth cut
+# where `layers` says (the card's 80 GB: 16 B of state a parameter, and
+# AdamW's float32 temporaries of the largest leaf beside it), weights
+# drawn with the card's generator (a vlm's gates from N(0, 1)), then
+# phase 20's check at batch 1 in float32 without a planted fault
+FAMILY_TRAIN = [
+    {"arch": "zamba2-7b", "layers": 12, "batch": 4, "seq": 2048,
+     "kernels": ("ssd_scan", "flash_attention", "rmsnorm")},
+    {"arch": "granite-moe-3b-a800m", "layers": 16, "batch": 4, "seq": 2048,
+     "kernels": ("flash_attention", "rmsnorm")},
+    {"arch": "whisper-small", "layers": None, "batch": 8, "seq": 448,
+     "kernels": ("flash_attention",)},
+    {"arch": "llama-3.2-vision-11b", "layers": 5, "batch": 2, "seq": 2048,
+     "kernels": ("flash_attention", "rmsnorm")},
+]
+# AdamW at 1e-4 after a linear warmup over the 5 steps (as launch/train.py
+# warms up over min(100, steps)): at 1e-3 from the second step, zamba2's
+# and llama's losses rose over the 5 steps
+FAMILY_TRAIN_COMMON = {"steps": 5, "remat": "block", "lr": 1e-4,
+                       "warmup_steps": 5, "seed": 0, "grad_batch": 1,
+                       "grad_seed": 1}
 
 # phase 5: real problem sizes and the configuration each runs with
 REAL = [
@@ -468,10 +532,10 @@ SB_REPEATS = 2
 SB_LIMIT_S = 240.0
 # phases 17 and 18: the new families served at full published width
 # through repro_torch.launch.serve, random weights from the seed; llama-
-# 3.2-vision cut to 10 of its 40 layers (2 cross-attention groups), what
-# the card's memory and the host's draw of the weights allow beside the
-# others.  Each: requests re-run alone (with the image or frames of the
-# slot it ran in), then one 64-token prefill and LOGIT_STEPS decode steps of
+# 3.2-vision cut to 5 of its 40 layers (1 cross-attention group), so that
+# the script stays inside its time limit with the training phases 19-21
+# (PERF.md §4).  Each: requests
+# re-run alone (with the image or frames of the slot it ran in), then one 64-token prefill and LOGIT_STEPS decode steps of
 # 8 rows against the plain versions' run, in bfloat16 within `bf16_ulps`
 # bfloat16 ulps at the logits' largest size and in float32 (same weights)
 # within FAMILY_LOGIT_ATOL_F32, which each planted fault must fail.  The
@@ -485,19 +549,19 @@ FAMILY_SERVE = [
     {"phase": 17, "arch": "zamba2-7b", "layers": None, "requests": 8,
      "prompt_len": (32, 512), "new_tokens": (16, 32), "rerun_alone": 1,
      "kernels": ("rmsnorm", "ssd_scan", "decode_attention"),
-     "bf16_ulps": 5, "profile": True},
+     "bf16_ulps": 5, "profile": 2},
     {"phase": 18, "arch": "granite-moe-3b-a800m", "layers": None,
      "requests": 4, "prompt_len": (32, 256), "new_tokens": (16, 32),
      "rerun_alone": 1, "kernels": ("rmsnorm", "decode_attention"),
-     "bf16_ulps": 6, "profile": False},
+     "bf16_ulps": 6, "profile": 0},
     {"phase": 18, "arch": "whisper-small", "layers": None, "requests": 4,
      "prompt_len": (32, 256), "new_tokens": (16, 32), "rerun_alone": 1,
      "kernels": ("decode_attention", "flash_attention"), "bf16_ulps": 3,
-     "profile": False},
-    {"phase": 18, "arch": "llama-3.2-vision-11b", "layers": 10,
+     "profile": 0},
+    {"phase": 18, "arch": "llama-3.2-vision-11b", "layers": 5,
      "requests": 4, "prompt_len": (32, 256), "new_tokens": (16, 32),
      "rerun_alone": 1, "kernels": ("rmsnorm", "decode_attention"),
-     "bf16_ulps": 2, "profile": False},
+     "bf16_ulps": 2, "profile": 0},
 ]
 FAMILY_COMMON = {"batch_slots": 8, "max_seq": 2048, "arrival_every": 2,
                  "seed": 0}
@@ -652,15 +716,15 @@ def _profiled(torch, fn, steps):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
+    averages = prof.key_averages()
+    kernels = [e for e in averages if str(e.device_type).endswith("CUDA")]
     busy_us = sum(e.self_device_time_total for e in kernels)
     by_name = {}            # names cut to 60 characters, their times summed
     for e in kernels:
         by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) \
             + e.self_device_time_total
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    ops = sorted((e for e in prof.key_averages()
+    ops = sorted((e for e in averages
                   if not str(e.device_type).endswith("CUDA")
                   and e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)[:10]
@@ -1183,6 +1247,20 @@ def ssm_serve_phase(torch, np, time_ms):
                 # the device time of each of its kernels (L2 warm)
                 case["profile"] = _profiled(
                     torch, lambda: ssd_scan(x, dt, A, B, C, chunk), 10)
+            if dtype == torch.bfloat16 and \
+                    (b, s, h, p, g, n, chunk) in SSD_TRAINING:
+                # SSDScan's backward at a training step's shape: the
+                # gradient of the reference scan, recomputed in eager
+                # torch (no kernel's time)
+                ins = [u.clone().requires_grad_(True)
+                       for u in (x, dt, A, B, C)]
+                yg, _ = ssd_scan(*ins, chunk)
+                dy = torch.randn_like(yg)
+                case["backward_ms"] = time_ms(
+                    lambda: torch.autograd.grad(yg, ins, dy,
+                                                retain_graph=True),
+                    reps=5, warmup=1)
+                del ins, yg, dy
             cases.append(case)
             del x, dt, B, C, y, st, py, pst, short
     emit(9, kernel="ssd_scan", cases=cases, max_abs_err_vs_plain=err,
@@ -1278,19 +1356,21 @@ def flash_phase(torch, np, time_ms, dev):
     return cases
 
 
-def train_phase(torch, np):
-    """Phase 11 (main path): ``repro_torch.launch.train`` at :data:`TRAIN`,
-    with the launch counts of its kernels, the loss of every step, the
-    median step time, tokens/s and peak memory; then one more step
-    profiled (:func:`_profiled`).  Returns the launch counts."""
+def train_phase(torch, np, phase, spec, expect):
+    """Phase 11 or 19 (main path): ``repro_torch.launch.train`` at
+    ``spec`` (:data:`TRAIN`, :data:`TRAIN_SSM`), with the launch counts of
+    its kernels, the loss of every step, the median step time, tokens/s
+    and peak memory; then one more step profiled (:func:`_profiled`).
+    ``expect(cfg, steps)`` gives the launches each kernel must make.
+    Returns the launch counts."""
     from repro_torch.data import data_iterator
     from repro_torch.kernels import KERNELS
     from repro_torch.launch import train
 
-    argv = ["--arch", TRAIN["arch"], "--steps", str(TRAIN["steps"]),
-            "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]),
-            "--remat", TRAIN["remat"], "--lr", str(TRAIN["lr"]),
-            "--log-every", "1", "--seed", str(TRAIN["seed"])]
+    argv = ["--arch", spec["arch"], "--steps", str(spec["steps"]),
+            "--batch", str(spec["batch"]), "--seq", str(spec["seq"]),
+            "--remat", spec["remat"], "--lr", str(spec["lr"]),
+            "--log-every", "1", "--seed", str(spec["seed"])]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     log = io.StringIO()
@@ -1301,23 +1381,27 @@ def train_phase(torch, np):
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in KERNELS}
     peak = torch.cuda.max_memory_allocated()
-    trainer, steps = run["trainer"], TRAIN["steps"]
+    trainer, steps = run["trainer"], spec["steps"]
     cfg = trainer.cfg
     assert trainer.device.type == "cuda", trainer.device
     losses = [h["loss"] for h in run["history"]]
     assert len(losses) == steps and all(math.isfinite(x) for x in losses), \
         losses
     drop = losses[0] - sum(losses[-5:]) / 5
-    it = data_iterator(cfg, TRAIN["batch"], TRAIN["seq"], start_step=steps,
-                       seed=TRAIN["seed"])
+    it = data_iterator(cfg, spec["batch"], spec["seq"], start_step=steps,
+                       seed=spec["seed"])
     prof = _profiled(torch, lambda: trainer.run(it, 1), 1)
     it.close()
-    emit(11, path="repro_torch.launch.train", train=TRAIN,
-         config={"n_layers": cfg.n_layers, "d_model": cfg.d_model,
-                 "n_heads": cfg.n_heads, "n_kv": cfg.n_kv,
-                 "head_dim": cfg.hd, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+    n_params = sum(t.numel() for t in _leaves(trainer.state["params"]))
+    emit(phase, path="repro_torch.launch.train", train=spec,
+         config={"family": cfg.family, "n_layers": cfg.n_layers,
+                 "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                 "n_kv": cfg.n_kv, "head_dim": cfg.hd, "d_ff": cfg.d_ff,
+                 "ssm_heads": cfg.ssm_heads if cfg.ssm_state else None,
+                 "ssm_state": cfg.ssm_state, "vocab": cfg.vocab,
                  "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
-                 "remat": cfg.remat, "use_kernels": cfg.use_kernels},
+                 "remat": cfg.remat, "use_kernels": cfg.use_kernels,
+                 "params": n_params},
          losses=losses, loss_drop=drop,
          grad_norms=[h["grad_norm"] for h in run["history"]],
          lrs=[h["lr"] for h in run["history"]],
@@ -1327,9 +1411,8 @@ def train_phase(torch, np):
          peak_memory_gb=peak / 1e9, launches=launches,
          launches_per_step={k: v / steps for k, v in launches.items()},
          summary=log.getvalue().splitlines()[:3], step_profile=prof)
-    assert launches["flash_attention"] == 2 * cfg.n_layers * steps, \
-        ("flash attention is launched once per layer in the forward and "
-         "once in its recompute", launches)
+    for name, count in expect(cfg, steps).items():
+        assert launches[name] == count, (name, count, launches)
     assert launches["rmsnorm"] > 0, launches
     assert drop >= LOSS_DROP, ("the loss did not fall", losses[0], drop)
     del run, trainer
@@ -1337,64 +1420,251 @@ def train_phase(torch, np):
     return launches
 
 
-def grad_check_phase(torch, np, dev):
-    """Phase 12: the loss and every gradient leaf of one float32 step at
-    full width (:data:`GRAD_CHECK`), kernels against their plain versions,
-    and the planted fault of :func:`causal_mask_shifted`."""
-    import dataclasses
-    from repro_torch import configs
+def _grads(torch, cfg, params, batch, ctx):
+    """The loss and every parameter leaf's gradient of one step under
+    ``ctx`` (the kernels, the plain versions, a planted fault)."""
+    from repro_torch.models import loss_fn
+    flat = [p for _, p in _paths(params)]
+    with ctx():
+        loss, _ = loss_fn(params, batch, cfg)
+        grads = torch.autograd.grad(loss, flat)
+    torch.cuda.synchronize()
+    return float(loss.detach()), grads
+
+
+def _paths(tree, path=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _paths(tree[k], f"{path}/{k}")]
+    return [(path, tree)]
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def grad_check(torch, cfg, params, batch, faults=None):
+    """Phase 12's check: the loss and every gradient leaf of one float32
+    step, kernels against their plain versions, and each planted fault
+    of ``faults`` (name -> context) against the plain versions too.
+    Returns the fields of the phase's line; raises if the kernels miss
+    the limits or a fault passes them."""
+    paths = [path for path, _ in _paths(params)]
+    for _, p in _paths(params):
+        p.requires_grad_(True)
+    k_loss, k_grads = _grads(torch, cfg, params, batch, contextlib.nullcontext)
+    p_loss, p_grads = _grads(torch, cfg, params, batch, plain_kernels)
+    kernels = {path: _rel(a, b) for path, a, b in zip(paths, k_grads, p_grads)}
+    del k_grads
+    loss = {"kernels": k_loss, "plain": p_loss}
+    fault = {}
+    for name, ctx in (faults or {}).items():
+        f_loss, f_grads = _grads(torch, cfg, params, batch, ctx)
+        loss[name] = f_loss
+        fault[name] = {path: _rel(a, b)
+                       for path, a, b in zip(paths, f_grads, p_grads)}
+        del f_grads
+    del p_grads
+    torch.cuda.empty_cache()
+    out = {"dtype": cfg.dtype, "loss": loss, "grad_rel_err": kernels,
+           "max_grad_rel_err": max(kernels.values()),
+           "grad_rel_tol": GRAD_REL_TOL, "loss_rel_tol": LOSS_REL_TOL}
+    if fault:
+        out["fault_grad_rel_err"] = fault
+        out["max_fault_grad_rel_err"] = {n: max(f.values())
+                                         for n, f in fault.items()}
+    assert abs(k_loss - p_loss) <= LOSS_REL_TOL * abs(p_loss), \
+        ("loss, kernels vs plain", cfg.name, k_loss, p_loss)
+    assert max(kernels.values()) <= GRAD_REL_TOL, \
+        ("gradients, kernels vs plain", cfg.name, kernels)
+    for name, f in fault.items():
+        assert max(f.values()) > GRAD_REL_TOL, \
+            ("the gradient limit does not see a planted fault", cfg.name,
+             name, f)
+    return out
+
+
+def _device_batch(torch, cfg, batch, seq, step, seed, dev):
+    """A synthetic batch on ``dev``: token ids as int64, the image or
+    frame embeddings as float32."""
     from repro_torch.data import synth_batch
-    from repro_torch.models import init_params, loss_fn
+    return {k: torch.tensor(v, device=dev,
+                            dtype=torch.float32 if v.dtype.kind == "f"
+                            else torch.int64)
+            for k, v in synth_batch(cfg, batch, seq, step, seed).items()}
+
+
+def grad_check_phase(torch, np, dev):
+    """Phase 12: :func:`grad_check` on one float32 step of smollm-135m at
+    full width (:data:`GRAD_CHECK`), with the planted fault of
+    :func:`causal_mask_shifted`."""
+    from repro_torch import configs
+    from repro_torch.models import init_params
 
     cfg = dataclasses.replace(configs.get_config(GRAD_CHECK["arch"]),
                               dtype="float32")
     params = init_params(cfg, torch.Generator().manual_seed(
         GRAD_CHECK["seed"]), device=dev)
-    batch = {k: torch.tensor(v, dtype=torch.int64, device=dev)
-             for k, v in synth_batch(cfg, GRAD_CHECK["batch"],
-                                     GRAD_CHECK["seq"], 0,
-                                     GRAD_CHECK["seed"]).items()}
-
-    def leaves(tree, path=""):
-        if isinstance(tree, dict):
-            return [x for k in sorted(tree)
-                    for x in leaves(tree[k], f"{path}/{k}")]
-        return [(path, tree)]
-    flat = leaves(params)
-    for _, p in flat:
-        p.requires_grad_(True)
-
-    def run(ctx):
-        with ctx():
-            loss, _ = loss_fn(params, batch, cfg)
-            grads = torch.autograd.grad(loss, [p for _, p in flat])
-        torch.cuda.synchronize()
-        return float(loss.detach()), grads
-
-    k_loss, k_grads = run(contextlib.nullcontext)
-    p_loss, p_grads = run(plain_kernels)
-    f_loss, f_grads = run(causal_mask_shifted)
-
-    def rel(a, b):
-        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-    kernels = {path: rel(a, b)
-               for (path, _), a, b in zip(flat, k_grads, p_grads)}
-    fault = {path: rel(a, b)
-             for (path, _), a, b in zip(flat, f_grads, p_grads)}
-    emit(12, check="gradients, kernels vs plain", config=GRAD_CHECK,
-         dtype=cfg.dtype, loss={"kernels": k_loss, "plain": p_loss,
-                                "causal_mask_shifted": f_loss},
-         grad_rel_err=kernels, fault_grad_rel_err=fault,
-         grad_rel_tol=GRAD_REL_TOL, loss_rel_tol=LOSS_REL_TOL)
-    assert abs(k_loss - p_loss) <= LOSS_REL_TOL * abs(p_loss), \
-        ("loss, kernels vs plain", k_loss, p_loss)
-    assert max(kernels.values()) <= GRAD_REL_TOL, \
-        ("gradients, kernels vs plain", kernels)
-    assert max(fault.values()) > GRAD_REL_TOL, \
-        ("the gradient limit does not see a causal mask shifted by one key",
-         fault)
-    del params, k_grads, p_grads, f_grads
+    batch = _device_batch(torch, cfg, GRAD_CHECK["batch"], GRAD_CHECK["seq"],
+                          0, GRAD_CHECK["seed"], dev)
+    out = grad_check(torch, cfg, params, batch,
+                     {"causal_mask_shifted": causal_mask_shifted})
+    emit(12, check="gradients, kernels vs plain", config=GRAD_CHECK, **out)
+    del params
     torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def ssd_backward_dt_shifted():
+    """Run the model with the kernels and ``SSDScan``'s backward
+    recomputing the reference scan with dt shifted by one step (step t
+    given step t + 1's dt, the last repeated); the forward is untouched
+    (for the check that the gradient limit sees it)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    real = ss.ssd_scan_reference
+
+    def shifted(x, dt, A, B, C, chunk=64):
+        return real(x, torch.cat([dt[:, 1:], dt[:, -1:]], 1), A, B, C, chunk)
+
+    ss.ssd_scan_reference = shifted
+    try:
+        yield
+    finally:
+        ss.ssd_scan_reference = real
+
+
+def ssm_grad_check_phase(torch, np, dev):
+    """Phase 20: :func:`grad_check` on one float32 step of mamba2-780m at
+    full width and depth (:data:`GRAD_CHECK_SSM`), with the planted fault
+    of :func:`ssd_backward_dt_shifted`, whose loss must equal the
+    kernels'."""
+    from repro_torch import configs
+    from repro_torch.models import init_params
+
+    t0 = time.perf_counter()
+    spec = GRAD_CHECK_SSM
+    cfg = dataclasses.replace(configs.get_config(spec["arch"]),
+                              dtype="float32")
+    params = init_params(cfg, torch.Generator(dev).manual_seed(spec["seed"]),
+                         device=dev)
+    batch = _device_batch(torch, cfg, spec["batch"], spec["seq"], 0,
+                          spec["seed"], dev)
+    out = grad_check(torch, cfg, params, batch,
+                     {"ssd_backward_dt_shifted": ssd_backward_dt_shifted})
+    emit(20, check="gradients, kernels vs plain", config=spec,
+         seconds=time.perf_counter() - t0, **out)
+    loss = out["loss"]
+    assert abs(loss["ssd_backward_dt_shifted"] - loss["kernels"]) \
+        <= LOSS_REL_TOL * abs(loss["kernels"]), \
+        ("the planted fault changed the forward", loss)
+    del params
+    torch.cuda.empty_cache()
+
+
+def family_train_phase(torch, np, spec, dev):
+    """Phase 21 for one architecture of :data:`FAMILY_TRAIN`: a
+    ``Trainer`` of the config at full width (depth cut where ``layers``
+    says) whose state is drawn with the card's generator, trained for a
+    few steps on the synthetic stream with the launch counts of the
+    model kernels; then :func:`grad_check` at batch 1 in float32 on
+    fresh weights.  Emits the phase's line; returns its seconds."""
+    from repro_torch import configs
+    from repro_torch.data import data_iterator
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import init_params
+    from repro_torch.training import (OptimizerConfig, TrainConfig, Trainer,
+                                      init_opt_state)
+
+    t_phase = time.perf_counter()
+    com = FAMILY_TRAIN_COMMON
+    cfg = dataclasses.replace(configs.get_config(spec["arch"]),
+                              remat=com["remat"])
+    if spec["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+
+    def draw(cfg, seed):
+        params = init_params(cfg, torch.Generator(dev).manual_seed(seed),
+                             device=dev)
+        if cfg.family == "vlm":
+            # zeros at init: the image would reach no loss
+            params["cross"]["gate"] = torch.randn(
+                params["cross"]["gate"].shape, device=dev,
+                generator=torch.Generator(dev).manual_seed(seed + 1))
+        return params
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = com["steps"]
+    trainer = Trainer(cfg, TrainConfig(log_every=1, opt=OptimizerConfig(
+        lr=com["lr"], warmup_steps=com["warmup_steps"], total_steps=steps)),
+        device=dev)
+    params = draw(cfg, com["seed"])
+    trainer.state = {"params": params, "opt": init_opt_state(params),
+                     "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    n_params = sum(t.numel() for t in _leaves(params))
+    del params
+    it = data_iterator(cfg, spec["batch"], spec["seq"], seed=com["seed"])
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    hist = trainer.run(it, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    it.close()
+    launches = {k.name: k.launches for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    secs = sorted(trainer.step_seconds)
+    med = secs[len(secs) // 2]
+    tokens = spec["batch"] * spec["seq"]
+    trainer.state = None
+    del trainer
+    gc_collect(torch)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    check = grad_check(torch, cfg32, draw(cfg32, com["grad_seed"]),
+                       _device_batch(torch, cfg32, com["grad_batch"],
+                                     spec["seq"], 0, com["grad_seed"], dev))
+    gc_collect(torch)
+    emit(21, path="repro_torch.training.Trainer", arch=spec["arch"],
+         train={**com, **spec},
+         config={"family": cfg.family, "n_layers": cfg.n_layers,
+                 "published_layers": configs.get_config(
+                     spec["arch"]).n_layers,
+                 "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                 "n_kv": cfg.n_kv, "head_dim": cfg.hd, "d_ff": cfg.d_ff,
+                 "vocab": cfg.vocab, "dtype": cfg.dtype,
+                 "param_dtype": cfg.param_dtype, "params": n_params},
+         losses=losses, grad_norms=[h["grad_norm"] for h in hist],
+         step_s=sorted(secs), step_median_s=med, tokens_per_step=tokens,
+         tokens_per_s=tokens / med, wall_s=wall, peak_memory_gb=peak / 1e9,
+         launches=launches, grad_check=check,
+         seconds=time.perf_counter() - t_phase)
+    assert all(math.isfinite(x) for x in losses) and len(losses) == steps, \
+        (spec["arch"], losses)
+    assert losses[-1] < losses[0], ("the loss did not fall", spec["arch"],
+                                    losses)
+    assert all(launches[k] > 0 for k in spec["kernels"]), \
+        ("a model kernel was not launched on the training path",
+         spec["arch"], launches)
+    return time.perf_counter() - t_phase
+
+
+def gc_collect(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_train_phases(torch):
+    """Phase 21, every architecture of :data:`FAMILY_TRAIN`, each after
+    the last one's memory is given back."""
+    import numpy as np
+    dev = torch.device("cuda", 0)
+    for spec in FAMILY_TRAIN:
+        gc_collect(torch)
+        emit(21, arch=spec["arch"], part="start",
+             memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
+        family_train_phase(torch, np, spec, dev)
 
 
 def build_scale():
@@ -2351,8 +2621,8 @@ def family_phase(torch, np, spec, dev):
     serving run through ``repro_torch.launch.serve`` with the launch
     counts of the model kernels, requests re-run alone, the logits
     against the plain versions in bfloat16 and float32 with the family's
-    planted faults, and, where ``profile`` says, 5 decode steps
-    profiled.  Emits the phase's line; returns its seconds."""
+    planted faults, and ``profile`` decode steps profiled (none where
+    it is 0).  Emits the phase's line; returns its seconds."""
     from repro_torch import configs
     from repro_torch.kernels import KERNELS
     from repro_torch.launch import serve
@@ -2394,10 +2664,12 @@ def family_phase(torch, np, spec, dev):
     eng._exec.prefill = prefill
     for k in KERNELS:
         k.launches = 0
+    t0 = time.perf_counter()
     run = serve.serve(eng, reqs, FAMILY_COMMON["arrival_every"])
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in KERNELS}
     peak = torch.cuda.max_memory_allocated()
+    part_s = {"setup": t0 - t_phase, "serve": time.perf_counter() - t0}
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
         serve.report(run)
@@ -2413,6 +2685,7 @@ def family_phase(torch, np, spec, dev):
     assert eng.context.devices[0].torch_device == dev
 
     # the same requests alone, with the slot's image or frames in every row
+    t0 = time.perf_counter()
     for r in reqs[:spec["rerun_alone"]]:
         slot = slot_of[bytes(np.asarray(r.prompt, np.int32))]
         alone = ServingEngine(
@@ -2425,10 +2698,12 @@ def family_phase(torch, np, spec, dev):
         assert again.out_tokens == r.out_tokens, \
             ("stream changed when served alone", spec["arch"], r.id)
         del alone
+    part_s["rerun_alone"] = time.perf_counter() - t0
 
     # logits: kernels against their plain versions, one 64-token prefill
     # and decode steps of 8 rows, in the served bfloat16 and in float32
     # (same weights); in float32 the limit must fail the planted faults
+    t0 = time.perf_counter()
     lrng = np.random.default_rng(3)
     toks0 = torch.tensor(lrng.integers(0, cfg.vocab, (B, 64)), device=dev)
     taux = {k: torch.as_tensor(v, device=dev) for k, v in aux.items()}
@@ -2455,8 +2730,12 @@ def family_phase(torch, np, spec, dev):
     limits = {"bfloat16": spec["bf16_ulps"]
               * bf16_ulp(logits["bfloat16"]["max_abs_logit"]),
               "float32": FAMILY_LOGIT_ATOL_F32}
+    part_s["logits"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     prof = profile_decode(torch, forward, init_caches, cfg, eng._exec.params,
-                          toks0, eng.S, dev) if spec["profile"] else None
+                          toks0, eng.S, dev, steps=spec["profile"]) \
+        if spec["profile"] else None
+    part_s["profile"] = time.perf_counter() - t0
     emit(spec["phase"], path="repro_torch.launch.serve", arch=spec["arch"],
          serve=run_cfg,
          config={"family": cfg.family, "n_layers": cfg.n_layers,
@@ -2476,7 +2755,7 @@ def family_phase(torch, np, spec, dev):
          summary=log.getvalue().splitlines()[:4],
          rerun_alone_identical=spec["rerun_alone"],
          logits_vs_plain=logits, logits_atol=limits, decode_profile=prof,
-         seconds=time.perf_counter() - t_phase)
+         part_s=part_s, seconds=time.perf_counter() - t_phase)
     for dt, res in logits.items():
         assert max(res["kernels"]) <= limits[dt], \
             ("logits, kernels vs plain", spec["arch"], dt, res["kernels"],
@@ -2491,9 +2770,7 @@ def family_phase(torch, np, spec, dev):
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    return [tree]
+    return [t for _, t in _paths(tree)]
 
 
 def family_phases(torch, gc):
@@ -2803,7 +3080,9 @@ def main() -> int:
     flash_cases = flash_phase(torch, np, time_ms, dev)
     emit(10, part="done", seconds=time.perf_counter() - t10)
     t11 = time.perf_counter()
-    train_launches = train_phase(torch, np)
+    train_launches = train_phase(
+        torch, np, 11, TRAIN,
+        lambda cfg, steps: {"flash_attention": 2 * cfg.n_layers * steps})
     grad_check_phase(torch, np, dev)
     main_case = flash_cases[0]            # the training shape, bfloat16
     entries.append({
@@ -2847,7 +3126,25 @@ def main() -> int:
     del sb_card, sb_ci, flush
     family_phases(torch, gc)
 
-    # -- 19. kernels line, card, result --------------------------------------------
+    # -- 19, 20. training mamba2-780m (main path), its gradient check ---------------
+    t19 = time.perf_counter()
+    ssm_launches = train_phase(
+        torch, np, 19, TRAIN_SSM,
+        # forward and the block's recompute; the backward launches none
+        lambda cfg, steps: {"ssd_scan": 2 * cfg.n_layers * steps,
+                            "flash_attention": 0})
+    for e in entries:
+        if e["name"] in ("ssd_scan", "rmsnorm"):
+            e["launches_phase19"] = ssm_launches[e["name"]]
+    ssm_grad_check_phase(torch, np, dev)
+    emit(20, part="done", seconds_19_20=time.perf_counter() - t19)
+
+    # -- 21. the other families trained at full width (main path) -----------------
+    t21 = time.perf_counter()
+    family_train_phases(torch)
+    emit(21, part="done", seconds=time.perf_counter() - t21)
+
+    # -- 22. kernels line, card, result --------------------------------------------
     print(json.dumps({"kernels": [
         {"name": e["name"], "route": "cuda",
          "source": e.get("source", KERNEL_SOURCE),
@@ -2856,6 +3153,8 @@ def main() -> int:
          "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
          "bound_by": e["bound_by"], "library_ms": e["library_ms"],
          "shapes": e.get("shapes", [e.get("shape")]),
+         **({"launches_phase19": e["launches_phase19"]}
+            if "launches_phase19" in e else {}),
          "held_against_plain": True} for e in entries]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

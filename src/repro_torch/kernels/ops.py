@@ -6,7 +6,9 @@ package (:mod:`.rmsnorm`, :mod:`.decode_attention`, :mod:`.ssd_scan`,
 tensors and run its plain version for CPU tensors.  ``use_kernels=False``
 selects :mod:`.ref`.  Attention with kernels goes through
 :class:`repro_torch.models.flash.FlashAttention`, the flash kernel's
-forward with the blocked backward of ``models/flash.py``.
+forward with the blocked backward of ``models/flash.py``; the SSD scan
+with kernels through :class:`.ssd_scan.SSDScan`, the scan kernel's
+forward with the gradient of the reference's scan.
 """
 
 from __future__ import annotations
@@ -42,10 +44,14 @@ def rmsnorm(x, w, eps: float = 1e-6, use_kernels: bool = False):
 
 
 def ssd_scan(x, dt, A, B, C, chunk: int = 64, use_kernels: bool = False):
-    """Returns (y, final_state) either way."""
+    """Returns (y, final_state) either way, each with a gradient, for any
+    length s (a ragged last chunk taken with dt = 0): with kernels the
+    kernel's forward and the gradient of the reference scan recomputed
+    (:class:`.ssd_scan.SSDScan`), without them the reference scan
+    (:func:`.ssd_scan.ssd_scan_reference`)."""
     if use_kernels:
         return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
-    return ref.ssd_scan(x, dt, A, B, C, chunk=chunk, return_state=True)
+    return _ssd.ssd_scan_reference(x, dt, A, B, C, chunk=chunk)
 
 
 __all__ = ["attention", "decode_attention", "rmsnorm", "ssd_scan"]

@@ -27,6 +27,12 @@ the others (``W x``, ``C S``, ``Bᵀ (decay ∘ x)``) as three bfloat16
 parts, which sum back to it.  So it computes the float32 function that
 :func:`ssd_scan_plain` computes, in another summation order.  For
 float32 inputs the kernel keeps its first design, CUDA-core FMAs.
+
+The scan has a gradient (:class:`SSDScan`): the kernel's forward, and a
+backward that differentiates :func:`ssd_scan_reference`, the torch
+reference's chunked scan, recomputed from the saved inputs.  The JAX
+package has no backward kernel either: it trains Mamba-2 through its
+reference scan.
 """
 
 from __future__ import annotations
@@ -34,9 +40,11 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from ..core.errors import InvalidArgError
-from ._cuda import DTYPE_CODES, CudaKernel, check_cuda_tensor, refuse_grad
+from . import ref
+from ._cuda import DTYPE_CODES, CudaKernel, check_cuda_tensor
 
 MAX_CHUNK = 64               # the kernel's L x L tile of the decay matrix
 MAX_STATE = 256              # B and C chunks of L x N in shared memory
@@ -121,21 +129,11 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.contiguous(), state.transpose(-1, -2).contiguous()
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-             B: torch.Tensor, C: torch.Tensor, chunk: int = 64):
-    """Shapes as :func:`ssd_scan_plain`.  The kernel takes x, dt, B and C
-    all in bfloat16 (the served model) or all in float32, A in float32,
-    contiguous, with g dividing h, 1 <= chunk <= :data:`MAX_CHUNK` and
-    n <= :data:`MAX_STATE`; anything else raises.
-
-    CUDA tensors go to the kernel; CPU tensors go to
-    :func:`ssd_scan_plain`.  It has no backward and refuses an input
-    that requires grad while grad mode is on."""
+def _ssd_scan_forward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      B: torch.Tensor, C: torch.Tensor, chunk: int):
+    """The kernel for CUDA tensors (checked first; anything else raises),
+    :func:`ssd_scan_plain` for CPU tensors."""
     tensors = (x, dt, A, B, C)
-    refuse_grad("ssd_scan", tensors,
-                "the ssm family trains through ref.ssd_scan "
-                "(use_kernels=False); training it with kernels waits for "
-                "a backward (ROADMAP A.13)")
     if all(t.device.type == "cpu" for t in tensors):
         return ssd_scan_plain(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":
@@ -186,5 +184,79 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, state
 
 
-__all__ = ["KERNEL", "MAX_CHUNK", "MAX_STATE", "cuda_launches", "ssd_scan",
-           "ssd_scan_plain"]
+def ssd_scan_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor, chunk: int = 64):
+    """``ref.ssd_scan`` over any length s > 0, differentiable: the steps
+    are padded to whole chunks with dt = 0, as the reference's model pads
+    them (exp(0 · A) = 1 leaves the state as it was and no input enters),
+    and the padded steps' y is dropped.  Returns (y (b, s, h, p), state
+    (b, h, p, n) float32).  The ``use_kernels=False`` path, and what
+    :class:`SSDScan`'s backward differentiates."""
+    s = x.shape[1]
+    pad = (-s) % chunk
+
+    def padded(t):
+        return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) if pad else t
+    y, state = ref.ssd_scan(padded(x), padded(dt), A, padded(B), padded(C),
+                            chunk=chunk, return_state=True)
+    return y[:, :s], state
+
+
+class SSDScan(torch.autograd.Function):
+    """The scan with a gradient.
+
+    forward: :func:`_ssd_scan_forward` (the kernel, or the plain version
+    for CPU tensors); it saves x, dt, A, B and C.  backward: on detached
+    copies of them, :func:`ssd_scan_reference` recomputed under grad mode
+    and differentiated against the incoming gradients of y and of the
+    final state (either may be None: an output that nothing used);
+    autograd returns each gradient in its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk: int = 64):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return _ssd_scan_forward(x, dt, A, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        needs = ctx.needs_input_grad[:5]
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, needs)]
+        wrt = [t for t in inputs if t.requires_grad]
+        # with no step, or no output used, the inputs reach nothing
+        if inputs[0].shape[1] and (dy is not None or dstate is not None):
+            with torch.enable_grad():
+                y, state = ssd_scan_reference(*inputs, chunk=ctx.chunk)
+                outs = [(o, g) for o, g in ((y, dy), (state, dstate))
+                        if g is not None]
+                got = torch.autograd.grad([o for o, _ in outs], wrt,
+                                          [g for _, g in outs],
+                                          allow_unused=True)
+        else:
+            got = [None] * len(wrt)
+        got = iter(got)
+        grads = [None] * 5
+        for i, t in enumerate(inputs):
+            if t.requires_grad:
+                g = next(got)
+                grads[i] = torch.zeros_like(t) if g is None else g
+        return (*grads, None)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, chunk: int = 64):
+    """Shapes as :func:`ssd_scan_plain`.  The kernel takes x, dt, B and C
+    all in bfloat16 (the served model) or all in float32, A in float32,
+    contiguous, with g dividing h, 1 <= chunk <= :data:`MAX_CHUNK` and
+    n <= :data:`MAX_STATE`; anything else raises.
+
+    CUDA tensors go to the kernel; CPU tensors go to
+    :func:`ssd_scan_plain`.  Differentiable in x, dt, A, B and C
+    (:class:`SSDScan`)."""
+    return SSDScan.apply(x, dt, A, B, C, chunk)
+
+
+__all__ = ["KERNEL", "MAX_CHUNK", "MAX_STATE", "SSDScan", "cuda_launches",
+           "ssd_scan", "ssd_scan_plain", "ssd_scan_reference"]

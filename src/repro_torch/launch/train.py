@@ -32,7 +32,7 @@ from ..training import OptimizerConfig, TrainConfig, Trainer
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=configs.ARCH_IDS)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config")
     ap.add_argument("--steps", type=int, default=100)

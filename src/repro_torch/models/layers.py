@@ -321,11 +321,6 @@ def _conv_window(u_raw, W: int):
     return F.pad(tail, (0, 0, short, 0)) if short else tail
 
 
-def _pad_steps(t, pad: int):
-    """``t`` (b, s, ...) with ``pad`` zero steps appended on axis 1."""
-    return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) if pad else t
-
-
 def mamba2(x, p: Params, cfg: ModelConfig, *, cache: Optional[Tuple] = None):
     """Mamba-2 SSD mixer.  cache=(conv_x, conv_B, conv_C, ssd_state); with
     one token it is a decode step, with more a prefill that starts from
@@ -334,10 +329,9 @@ def mamba2(x, p: Params, cfg: ModelConfig, *, cache: Optional[Tuple] = None):
     Two differences from the reference, both where its cache would be
     wrong: a scan of any length is taken (the reference asserts a
     prefill needs no padding), and a prompt shorter than W-1 leaves a
-    zero-padded conv window.  The kernel takes a ragged last chunk
-    itself; for the torch ref, whose scan needs whole chunks, the scan
-    is padded to a multiple of ``ssm_chunk`` with dt = 0, which leaves
-    the state exactly as the last real token left it.  The decode step is
+    zero-padded conv window.  The scan takes a ragged last chunk with
+    dt = 0, which leaves the state exactly as the last real token left
+    it (:func:`repro_torch.kernels.ops.ssd_scan`).  The decode step is
     plain torch, as the reference's is plain jnp."""
     B, S, _ = x.shape
     Hh, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
@@ -374,14 +368,9 @@ def mamba2(x, p: Params, cfg: ModelConfig, *, cache: Optional[Tuple] = None):
         y = y[:, None]
         new_cache = (ncx, ncB, ncC, new_state)
     else:
-        pad = 0 if cfg.use_kernels else (-S) % cfg.ssm_chunk
-        # dt = 0 on the padded steps: exp(0 * A) = 1 leaves the state as
-        # it was and no input enters; their y is dropped
-        y, final_state = ops.ssd_scan(
-            _pad_steps(xs, pad), _pad_steps(dt, pad), A,
-            _pad_steps(Bm, pad), _pad_steps(Cm, pad),
-            chunk=cfg.ssm_chunk, use_kernels=cfg.use_kernels)
-        y = y[:, :S]
+        y, final_state = ops.ssd_scan(xs, dt, A, Bm, Cm,
+                                      chunk=cfg.ssm_chunk,
+                                      use_kernels=cfg.use_kernels)
         if cache is not None:   # prefill: stash streaming window + state
             new_cache = (_conv_window(u_raw, W), _conv_window(B_raw, W),
                          _conv_window(C_raw, W), final_state)

@@ -1,14 +1,20 @@
-"""repro_torch.training — the train step, AdamW, checkpoints and the
-fault-tolerant training loop on one device (ports of ``repro.training``;
-the mesh half waits for ROADMAP A.11, ``compression.py`` and
-``straggler.py`` for A.9 and A.11)."""
+"""repro_torch.training — the train step, AdamW, checkpoints, the
+fault-tolerant training loop on one device, error-feedback gradient
+compression and the straggler monitor (ports of ``repro.training``; the
+mesh half waits for ROADMAP A.11)."""
 
 from .optimizer import OptimizerConfig, adamw_update, init_opt_state, \
     lr_schedule, global_norm
 from .trainer import (TrainConfig, Trainer, make_train_step, init_state,
                       abstract_state)
-from . import checkpoint
+from .compression import (compress, compress_grads, decompress,
+                          decompress_grads, init_feedback)
+from .straggler import StragglerConfig, StragglerMonitor, plan_elastic_mesh
+from . import checkpoint, compression, straggler
 
-__all__ = ["OptimizerConfig", "TrainConfig", "Trainer", "abstract_state",
-           "adamw_update", "checkpoint", "global_norm", "init_opt_state",
-           "init_state", "lr_schedule", "make_train_step"]
+__all__ = ["OptimizerConfig", "StragglerConfig", "StragglerMonitor",
+           "TrainConfig", "Trainer", "abstract_state", "adamw_update",
+           "checkpoint", "compress", "compress_grads", "compression",
+           "decompress", "decompress_grads", "global_norm", "init_feedback",
+           "init_opt_state", "init_state", "lr_schedule", "make_train_step",
+           "plan_elastic_mesh", "straggler"]

@@ -346,6 +346,54 @@ def test_ssd_scan_tolerance_sees_one_step_short(dev, b, s, h, p, g, n, chunk,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [(2, 1000, 48, 64, 1, 128, 64),
+                                               (1, 100, 4, 16, 2, 32, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_gradient_is_the_reference_scans(dev, b, s, h, p, g, n,
+                                                  chunk, dtype):
+    """``SSDScan`` on CUDA tensors: the kernel's forward (one counted
+    launch), held to the plain version, and the gradients of x, dt, A, B
+    and C through y and the final state equal to autograd of
+    ``ssd_scan_reference`` on the same inputs (the backward is that
+    function's gradient; the loss is linear, so both get the same
+    incoming gradients): within ``1e-5`` relative and ``1e-6`` of the
+    largest entry in float32, one bfloat16 ulp in bfloat16, since a
+    group's gradient may be summed by atomics in another order."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_reference
+    args = _ssd_inputs(dev, dtype, b, s, h, p, g, n, seed=s + 7)
+    rng = np.random.default_rng(s)
+    wy = _t(rng.standard_normal((b, s, h, p)), torch.float32, dev)
+    ws = _t(rng.standard_normal((b, h, p, n)), torch.float32, dev)
+
+    def grads(fn):
+        ts = [t.clone().requires_grad_(True) for t in args]
+        y, st = fn(*ts, chunk)
+        loss = (y.float() * wy).sum() + (st * ws).sum()
+        return y.detach(), st.detach(), torch.autograd.grad(loss, ts)
+    before = KERNELS[2].launches
+    y, st, got = grads(ssd_scan)
+    torch.cuda.synchronize()
+    assert KERNELS[2].launches == before + 1
+    py, pst = ssd_scan_plain(*args, chunk)
+    np.testing.assert_allclose(
+        y.float().cpu().numpy(), py.float().cpu().numpy(),
+        **(SSD_F32_TOL if dtype == torch.float32 else SSD_Y_BF16_TOL))
+    np.testing.assert_allclose(st.cpu().numpy(), pst.cpu().numpy(),
+                               **SSD_F32_TOL)
+    _, _, want = grads(ssd_scan_reference)
+    assert KERNELS[2].launches == before + 1
+    for name, a, w in zip("x dt A B C".split(), got, want):
+        assert a.dtype == w.dtype, name
+        assert bool(torch.isfinite(a.float()).all()), name
+        w = w.float().cpu().numpy()
+        rtol = 1e-5 if a.dtype == torch.float32 else BF16_ULP
+        np.testing.assert_allclose(
+            a.float().cpu().numpy(), w, rtol=rtol,
+            atol=(1e-6 if a.dtype == torch.float32 else BF16_ULP)
+            * float(np.abs(w).max()), err_msg=name)
+
+
+@pytest.mark.cuda
 def test_ssd_scan_wrapper_refuses_what_the_kernel_does_not_take(dev):
     x, dt, A, B, C = _ssd_inputs(dev, torch.bfloat16, 1, 64, 4, 16, 2, 16,
                                  seed=1)

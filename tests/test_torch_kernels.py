@@ -256,10 +256,11 @@ def test_unported_kernels_raise_naming_the_roadmap():
 
 
 def test_kernels_without_a_backward_refuse_inputs_that_require_grad():
-    """decode attention and the SSD scan have no backward: an input that
-    requires grad is refused while grad mode is on, naming the ROADMAP
-    item, instead of a result with no ``grad_fn``; without grad mode they
-    run."""
+    """decode attention has no backward: an input that requires grad is
+    refused while grad mode is on, naming the ROADMAP item, instead of a
+    result with no ``grad_fn``; without grad mode it runs.  The SSD scan
+    has one (``SSDScan``): its result carries a ``grad_fn``, and without
+    grad mode it runs bare."""
     from repro_torch.kernels.ssd_scan import ssd_scan
     q = torch.zeros(2, 4, 16, requires_grad=True)
     kc = torch.zeros(2, 2, 32, 16)
@@ -268,11 +269,12 @@ def test_kernels_without_a_backward_refuse_inputs_that_require_grad():
         decode_attention(q, kc, kc, lens)
     args = (torch.zeros(1, 8, 4, 8, requires_grad=True), torch.zeros(1, 8, 4),
             torch.zeros(4), torch.zeros(1, 8, 1, 16), torch.zeros(1, 8, 1, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        ssd_scan(*args, chunk=8)
+    y, state = ssd_scan(*args, chunk=8)
+    assert y.grad_fn is not None and state.grad_fn is not None
     with torch.no_grad():
         assert decode_attention(q, kc, kc, lens).shape == (2, 4, 16)
-        assert ssd_scan(*args, chunk=8)[0].shape == (1, 8, 4, 8)
+        y, _ = ssd_scan(*args, chunk=8)
+        assert y.shape == (1, 8, 4, 8) and y.grad_fn is None
 
 
 def test_wrappers_refuse_tensors_that_are_neither_cpu_nor_cuda():
