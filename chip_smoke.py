@@ -27,7 +27,10 @@ whisper-small (encdec: its encoder through ``flash_attention`` in every
 prefill) and llama-3.2-vision-11b (vlm) — and training every family:
 mamba2-780m at full width and depth through ``ssd_scan`` (its gradient
 that of the reference's scan), then the hybrid, moe, encdec and vlm
-families at full width.
+families at full width — and the replicated serving mesh: two replicas
+of smollm-135m on two ``cuda`` devices of the card, one killed
+mid-decode and its requests migrated to the other, and the port's
+quickstart and host-runtime examples on the card.
 Each phase prints one JSON line
 or more; any mismatch, build error or launch error raises and the script
 exits non-zero.
@@ -282,9 +285,33 @@ exits non-zero.
      group, 1600 image tokens), weights drawn with the card's generator:
      5 steps each, finite losses, the last below the first, each kernel
      of the family's path launched; then phase 20's check at batch 1;
- 22. the kernels line (each kernel with the shapes it ran at, ssd_scan's
-     and rmsnorm's phase-19 launches beside), then the card's name and
-     power limit, then the result line.
+ 22. the replicated serving mesh (main path): ``repro_torch.serving.
+     ServingMesh`` over two replicas of phase 6's smollm-135m (its
+     configuration, its weights drawn again from its seed, bf16), two
+     ``cuda`` devices of the one card, each with 8 slots and a
+     2048-token cache, serves phase 6's 16 requests through the router;
+     once replica 1's residents are all past their 16th decoded token,
+     ``inject_fault(stage="device")`` kills it, the mesh migrates them to
+     replica 0 and drains; then ``recover_replica(1)`` and 4 more
+     requests (the four of phase 6's with the fewest new tokens), pinned
+     two to each replica.  Every
+     request must retire exactly once, none failed; ``mesh_stats()``
+     ``drops == 0``, ``migrated > 0``, ``device_losses == 1``; every
+     stream equal to phase 6's single-engine stream of the same request;
+     both replicas end with ``kv_pages_live == 0``; the dead replica's
+     caches given back (``torch.cuda.memory_allocated()`` after the
+     drain at most that before the kill plus one replica's caches, and
+     below it by at least those caches); the exported trace
+     (``build/repro_torch/phase22_mesh_trace.json``) holding one
+     migration flow per migrated request.  Wall seconds, tok/s, mesh
+     steps, each replica's decode-step ms, the migrations and the
+     ``rmsnorm`` and ``decode_attention`` launches are printed.  Then
+     ``examples/torch_quickstart.py`` and ``examples/torch_opencl_runtime.
+     py`` run on the card, in parallel, and must exit 0;
+ 23. the kernels line (each kernel with the shapes it ran at, ssd_scan's
+     and rmsnorm's phase-19 launches and rmsnorm's and decode_attention's
+     phase-22 launches beside), then the card's name and power limit,
+     then the result line.
 
 Launch counts are set to 0 just before each main-path phase and read
 just after it; launches made to compare a kernel with its plain version
@@ -339,6 +366,17 @@ LOGIT_STEPS = 8             # decode steps of the kernels-vs-plain check
 # order only and one key moves the logits by about 1e-2 (PERF.md).
 LOGIT_ATOL = 2 * 0.0625
 LOGIT_ATOL_F32 = 1e-3
+# phase 22: the serving mesh over phase 6's model and requests: replica 1
+# is killed once each of its residents has decoded more than KILL_AFTER
+# tokens; the MESH_MORE of phase 6's requests with the fewest new tokens
+# are served again after its recovery, pinned alternately to the two
+# replicas
+MESH_REPLICAS = 2
+KILL_AFTER = 16
+MESH_MORE = 4
+MESH_EXAMPLES = ("examples/torch_quickstart.py",
+                 "examples/torch_opencl_runtime.py")
+
 # phase 7: rmsnorm cases, (rows, d, x dtype, w dtype): a decode step's
 # shape first (its time is the kernels line's, and it is replayed from a
 # CUDA graph too), then the serving prefill's rows, mamba2's widths (the
@@ -908,7 +946,8 @@ def decode_case(torch, np, time_ms, rng, dev, shape, graph):
 def serve_phase(torch, np, time_ms):
     """Phases 6 and 7: the serving path at full width, then the model
     kernels against their plain versions, timed.  Returns the kernels
-    line's entries of the two kernels."""
+    line's entries of the two kernels and phase 6's requests (prompt,
+    budget, stream), which phase 22 serves again."""
     import torch.nn.functional as F
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
@@ -1071,7 +1110,9 @@ def serve_phase(torch, np, time_ms):
                     "bound_ms": main_case["bound_ms"], "bound_by": "bytes",
                     "library_ms": main_case["library_ms"],
                     "shapes": [list(c) for c in DEC_CASES]})
-    return entries
+    served = [(r.prompt.copy(), r.max_new_tokens, list(r.out_tokens))
+              for r in reqs]
+    return entries, served
 
 
 def ssd_flops_bytes(b, s, h, p, g, n, chunk, esize):
@@ -2785,6 +2826,201 @@ def family_phases(torch, gc):
         family_phase(torch, np, spec, torch.device("cuda", 0))
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the replicated serving mesh
+# ---------------------------------------------------------------------------
+
+def decode_step_timer(torch, eng, into):
+    """Wrap ``eng.step`` so that each step whose round ran a decode and no
+    prefill appends its host milliseconds (the device synchronized at the
+    end) to ``into``, as ``launch/serve.py`` times phase 6's steps."""
+    step = eng.step
+
+    def timed():
+        d0 = eng.dag_stats
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        d1 = eng.dag_stats
+        if d1["decode_events"] > d0["decode_events"] and \
+                d1["prefill_events"] == d0["prefill_events"]:
+            into.append(ms)
+        return out
+    eng.step = timed
+
+
+def run_examples_on_card():
+    """Phase 22's last part: the paper's two entry points of the port on
+    the card, in parallel; each must exit 0.  Returns their exit codes,
+    seconds and last lines."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    t0 = time.perf_counter()
+    procs = {rel: subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, rel)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rel in MESH_EXAMPLES}
+    out = {}
+    try:
+        for rel, p in procs.items():
+            so, se = p.communicate(timeout=300)
+            out[rel] = {"rc": p.returncode,
+                        "seconds": time.perf_counter() - t0,
+                        "last": (so.strip().splitlines() or [""])[-1],
+                        "stderr": se[-2000:] if p.returncode else ""}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def mesh_phase(torch, np, served):
+    """Phase 22: the replicated serving mesh on the card (see the module
+    docstring).  ``served`` is phase 6's (prompt, budget, stream) per
+    request.  Returns the launches of each model kernel."""
+    from repro_torch import configs
+    from repro_torch.core.nvcc import BUILD_DIR
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import init_params
+    from repro_torch.runtime import Platform, validate_trace
+    from repro_torch.serving import ReplicaState, Request, ServingMesh
+
+    t_setup = time.perf_counter()
+    cfg = configs.get_config(SERVE["arch"])
+    platform = Platform()
+    dev = platform.torch_devices[0]
+    params = init_params(cfg, torch.Generator().manual_seed(SERVE["seed"]),
+                         device=dev)
+    mesh = ServingMesh(cfg, params, n_replicas=MESH_REPLICAS,
+                       batch_slots=SERVE["batch_slots"],
+                       max_seq=SERVE["max_seq"], platform=platform)
+    assert [r.device.info.driver for r in mesh.replicas] == ["cuda"] * 2
+    assert all(r.engine._exec.device == dev for r in mesh.replicas)
+    caches = mesh.replicas[0].engine._exec.cache_bytes(
+        SERVE["batch_slots"], SERVE["max_seq"])     # one replica's caches
+    tr = mesh.attach_trace()
+    step_ms = {r.key: [] for r in mesh.replicas}
+    for r in mesh.replicas:
+        decode_step_timer(torch, r.engine, step_ms[r.key])
+    reqs = [Request(prompt=p.copy(), max_new_tokens=m)
+            for p, m, _ in served]
+    want = [s for _, _, s in served]
+    setup_s = time.perf_counter() - t_setup
+
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        mesh.submit(r)
+    routed = [r.load for r in mesh.replicas]
+    retired = []
+    victim = mesh.replicas[1]
+    for _ in range(4 * max(m for _, m, _ in served)):
+        retired += mesh.step()
+        slots = [s for s in victim.engine._slots if s is not None]
+        if slots and all(len(s.request.out_tokens) > KILL_AFTER
+                         for s in slots):
+            break
+    else:
+        raise AssertionError("replica 1 never held residents past their "
+                             f"{KILL_AFTER}th token")
+    killed_at = {"mesh_step": mesh.current_step,
+                 "residents": len(slots),
+                 "tokens": sorted(len(s.request.out_tokens) for s in slots)}
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated(dev)
+    victim.engine.inject_fault(stage="device")
+    retired += mesh.drain()
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated(dev)
+    wall_s = time.perf_counter() - t0
+    stats = mesh.mesh_stats
+    migrations = list(mesh.migrations)
+    assert victim.state == ReplicaState.DEAD
+    assert victim.engine._state is None, "the dead replica kept its caches"
+
+    # recovery: a fresh engine on replica 1, then MESH_MORE more requests
+    t_more = time.perf_counter()
+    mesh.recover_replica(1)
+    decode_step_timer(torch, victim.engine, step_ms[victim.key])
+    again = sorted(range(len(served)), key=lambda i: served[i][1])[
+        :MESH_MORE]
+    more = [Request(prompt=served[i][0].copy(),
+                    max_new_tokens=served[i][1]) for i in again]
+    for i, r in enumerate(more):
+        mesh.submit(r, replica=i % MESH_REPLICAS)
+    more_retired = mesh.drain()
+    torch.cuda.synchronize()
+    more_s = time.perf_counter() - t_more
+    launches = {k.name: k.launches for k in KERNELS}
+    path = os.path.join(str(BUILD_DIR), "phase22_mesh_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    doc = tr.export(path)
+    mesh.detach_trace()
+    events = doc["traceEvents"]
+    counts = validate_trace(events)
+    flows = sorted(e["name"] for e in events
+                   if e["ph"] == "s" and e["name"].startswith("migrate:"))
+    final = mesh.mesh_stats
+    tokens = sum(len(r.out_tokens) for r in reqs + more)
+    med = {k: (sorted(v)[len(v) // 2] if v else None)
+           for k, v in step_ms.items()}
+    emit(22, path="repro_torch.serving.ServingMesh", replicas=MESH_REPLICAS,
+         devices=[r.device.info.name for r in mesh.replicas],
+         serve={k: SERVE[k] for k in ("arch", "batch_slots", "max_seq",
+                                      "seed")},
+         requests=len(reqs), routed=routed, killed_at=killed_at,
+         wall_s=wall_s, tokens=sum(len(r.out_tokens) for r in reqs),
+         tok_s=sum(len(r.out_tokens) for r in reqs) / wall_s,
+         mesh_steps=stats["steps"], decode_step_ms_median=med,
+         decode_steps={k: len(v) for k, v in step_ms.items()},
+         migrations=len(migrations), migrated=stats["migrated"],
+         device_losses=stats["device_losses"], drops=stats["drops"],
+         memory={"before_kill": mem_before, "after_drain": mem_after,
+                 "freed": mem_before - mem_after, "caches": caches},
+         recovered={"requests": len(more), "seconds": more_s,
+                    "replica_steps": [r.steps for r in mesh.replicas]},
+         all_tokens=tokens, launches=launches, trace=path,
+         trace_counts=counts, setup_s=setup_s)
+
+    ids = [id(r) for r in retired]
+    assert sorted(ids) == sorted(id(r) for r in reqs), \
+        "a request retired twice or never"
+    assert all(r.done and r.error is None for r in reqs), \
+        [(r.id, r.state, r.error) for r in reqs if not r.done]
+    assert [r.out_tokens for r in reqs] == want, \
+        ("a mesh stream differs from phase 6's",
+         [i for i, r in enumerate(reqs) if r.out_tokens != want[i]])
+    assert stats["drops"] == 0 and stats["migrated"] > 0 \
+        and stats["device_losses"] == 1, stats
+    assert stats["failed"] == 0 and stats["completed"] == len(reqs), stats
+    assert len(migrations) == stats["migrated"]
+    assert mem_after <= mem_before + caches, (mem_before, mem_after, caches)
+    assert mem_before - mem_after >= caches, \
+        ("the dead replica's caches were not given back",
+         mem_before, mem_after, caches)
+    assert flows == sorted(f"migrate:r{m['request']}" for m in migrations)
+    assert sorted(id(r) for r in more_retired) == \
+        sorted(id(r) for r in more)
+    assert all(r.done for r in more) and \
+        [r.out_tokens for r in more] == [want[i] for i in again]
+    assert all(r["pages_live"] == 0 for r in final["replicas"]), final
+    assert final["device_losses"] == 1 and final["drops"] == 0, final
+    assert all(len(v) > 0 for v in step_ms.values()), step_ms
+    assert launches["rmsnorm"] > 0 and launches["decode_attention"] > 0, \
+        ("a model kernel was not launched on the mesh path", launches)
+    del mesh, params, tr
+    gc_collect(torch)
+
+    ex = run_examples_on_card()
+    emit(22, part="examples", runs=ex)
+    for rel, r in ex.items():
+        assert r["rc"] == 0, (rel, r)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3065,7 +3301,8 @@ def main() -> int:
 
     # -- 6. serving at full width (main path) ----------------------------------------
     t6 = time.perf_counter()
-    entries += serve_phase(torch, np, time_ms)
+    serve_entries, served6 = serve_phase(torch, np, time_ms)
+    entries += serve_entries
     emit(7, part="done", seconds_6_7=time.perf_counter() - t6)
     torch.cuda.empty_cache()
 
@@ -3144,7 +3381,15 @@ def main() -> int:
     family_train_phases(torch)
     emit(21, part="done", seconds=time.perf_counter() - t21)
 
-    # -- 22. kernels line, card, result --------------------------------------------
+    # -- 22. the replicated serving mesh (main path) -----------------------------
+    t22 = time.perf_counter()
+    mesh_launches = mesh_phase(torch, np, served6)
+    for e in entries:
+        if e["name"] in ("rmsnorm", "decode_attention"):
+            e["launches_phase22"] = mesh_launches[e["name"]]
+    emit(22, part="done", seconds=time.perf_counter() - t22)
+
+    # -- 23. kernels line, card, result --------------------------------------------
     print(json.dumps({"kernels": [
         {"name": e["name"], "route": "cuda",
          "source": e.get("source", KERNEL_SOURCE),
@@ -3153,8 +3398,8 @@ def main() -> int:
          "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
          "bound_by": e["bound_by"], "library_ms": e["library_ms"],
          "shapes": e.get("shapes", [e.get("shape")]),
-         **({"launches_phase19": e["launches_phase19"]}
-            if "launches_phase19" in e else {}),
+         **({k: e[k] for k in ("launches_phase19", "launches_phase22")
+             if k in e}),
          "held_against_plain": True} for e in entries]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

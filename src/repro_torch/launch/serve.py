@@ -14,25 +14,28 @@ kernels' plain versions); with no card and no ``--device`` it raises
 :class:`~repro_torch.runtime.DeviceNotFoundError`.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
-      --smoke --device cpu --requests 6 --max-new 16
+      --smoke --device cpu --requests 6 --max-new 16 [--trace OUT.JSON]
 
-The reference's ``--trace`` (Chrome-trace export) waits for the port of
-``runtime/trace.py``.
+``--trace OUT.JSON`` records the run's event DAG (one slice a command on
+the device's row) and a ``kv_pages_live`` counter track on the same row
+through the context's :meth:`~repro_torch.runtime.context.Context.trace`,
+and exports it as Chrome-trace JSON (open it in chrome://tracing).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import statistics
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .. import configs
 from ..models import init_params
-from ..runtime import Context, Platform
+from ..runtime import ChromeTrace, Context, Platform
 from ..serving import Request, ServingEngine
 
 
@@ -52,6 +55,9 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: the first "
                          "CUDA device); 'cpu' for tests")
+    ap.add_argument("--trace", metavar="OUT.JSON", default=None,
+                    help="export the run's event DAG as Chrome-trace "
+                         "JSON (open in chrome://tracing, docs/mesh.md)")
     return ap.parse_args(argv)
 
 
@@ -102,16 +108,19 @@ def make_engine(cfg, seed: int = 0, batch_slots: int = 4,
 
 
 def serve(eng: ServingEngine, requests: List[Request],
-          arrival_every: int = 1) -> Dict[str, object]:
+          arrival_every: int = 1,
+          trace: Optional[ChromeTrace] = None) -> Dict[str, object]:
     """Submit one request every ``arrival_every`` steps and pump the
     scheduler until it drains.  Returns the engine, the requests, the
     finished ones, the tokens served, the wall seconds, tok/s and the
     median wall milliseconds of the steps whose round ran a decode and no
-    prefill (the decode steps)."""
+    prefill (the decode steps).  With ``trace``, each step adds a
+    ``kv_pages_live`` sample to it on the device's row."""
     done: List[Request] = []
     pending = list(requests)
     decode_ms: List[float] = []
     dev = eng.context.devices[0].torch_device
+    row = eng.context.devices[0].info.name
     t0 = time.perf_counter()
     while pending or eng.scheduler_stats["waiting"] or \
             eng.scheduler_stats["running"]:
@@ -123,6 +132,9 @@ def serve(eng: ServingEngine, requests: List[Request],
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         ms = (time.perf_counter() - ts) * 1e3
+        if trace is not None:
+            trace.counter("kv_pages_live", eng.kv_stats["pages_live"],
+                          process=row)
         dag1 = eng.dag_stats
         if dag1["decode_events"] > dag0["decode_events"] and \
                 dag1["prefill_events"] == dag0["prefill_events"]:
@@ -168,7 +180,13 @@ def main(argv=None) -> Dict[str, object]:
     eng = make_engine(cfg, args.seed, args.batch_slots, args.max_seq,
                       args.scheduler, args.device, aux)
     reqs = make_requests(cfg, rng, args.requests, new=(2, args.max_new))
-    run = serve(eng, reqs, args.arrival_every)
+    with (eng.context.trace() if args.trace
+          else contextlib.nullcontext()) as tr:
+        run = serve(eng, reqs, args.arrival_every, trace=tr)
+    if args.trace:
+        doc = tr.export(args.trace)
+        print(f"trace: {len(doc['traceEvents'])} events -> {args.trace} "
+              f"(load in chrome://tracing)")
     report(run)
     return run
 

@@ -22,9 +22,10 @@ lopsided platform.
 Device queries (global memory size, max work-group size, …) come from
 ``torch.cuda.get_device_properties`` for a CUDA device.  Every device
 owns a :class:`~repro_torch.core.cache.CompilationCache` and an
-``allocator``, a :class:`~repro_torch.runtime.bufalloc.Bufalloc` arena
-over its global memory size: the book-keeping of its buffers (and of the
-serving engine's KV pages).
+``allocator``, a :class:`DeviceArena` (a :class:`~repro_torch.runtime.
+bufalloc.Bufalloc` over its global memory size with the device's lock
+around every call): the book-keeping of its buffers (and of the serving
+engine's KV pages).
 
 A :class:`Buffer` (``cl_mem``) lives in its device's memory: its payload
 is a flat 1-D tensor on ``device.torch_device``, not a host mirror, and
@@ -77,6 +78,41 @@ _TARGET_OF_DRIVER = {"cuda": "cuda", "vector": "vector", "basic": "loop",
                      "auto": "auto"}
 
 
+class DeviceArena(Bufalloc):
+    """A device's :class:`~repro_torch.runtime.bufalloc.Bufalloc` arena
+    with one lock, the device's, around every call that reads or changes
+    its chunk list (ROADMAP C.17).
+
+    ``Bufalloc`` holds no lock, and a device's arena is called from
+    several threads at once: a lazy buffer allocates on first use on a
+    queue's worker, the co-executor releases a launch's buffers on a
+    worker while the next launch allocates, and every
+    :class:`~repro_torch.runtime.memory.BufferPool` over the device (the
+    context's, each serving engine's KV pool) reaches the arena on its
+    misses and overflowing frees.  Each pool's own lock serializes that
+    pool only."""
+
+    def __init__(self, region_size: int, **kwargs):
+        super().__init__(region_size, **kwargs)
+        self.lock = threading.Lock()
+
+    def alloc(self, size: int) -> Chunk:
+        with self.lock:
+            return super().alloc(size)
+
+    def free(self, chunk: Chunk) -> None:
+        with self.lock:
+            super().free(chunk)
+
+    def largest_free(self) -> int:
+        with self.lock:
+            return super().largest_free()
+
+    def check_invariants(self) -> None:
+        with self.lock:
+            super().check_invariants()
+
+
 class Device:
     """Device-layer object (cl_device_id analogue): a driver kind on one
     torch device, with a private compilation cache.  The target is the
@@ -93,7 +129,7 @@ class Device:
         # per-device compilation cache; the disk tier activates when
         # REPRO_KERNEL_CACHE_DIR is set
         self.compile_cache = CompilationCache.from_env()
-        self.allocator = Bufalloc(info.global_mem_size, greedy=True)
+        self.allocator = DeviceArena(info.global_mem_size, greedy=True)
 
     def compile(self, build: Callable[[], Function],
                 local_size: Sequence[int], **opts) -> CompiledKernel:

@@ -189,6 +189,13 @@ class TorchExecutor(BatchExecutor):
         caches = init_caches(self.cfg, batch, seq, device="meta")
         return int(sum(t.numel() * t.element_size() for t in caches.values()))
 
+    def release(self) -> None:
+        """Drop the device tensors this executor made (the parameters'
+        compute-dtype view and the auxiliary inputs); it runs no model
+        after this.  The caller's ``params`` are untouched."""
+        self.params = None
+        self.aux = {}
+
     # -- bookkeeping -----------------------------------------------------------
     def compile_stats(self) -> Dict[str, int]:
         """Call counters, and the prefill shapes seen: the port runs

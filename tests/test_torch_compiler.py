@@ -271,6 +271,38 @@ def test_port_imports_neither_jax_nor_repro():
     assert int(r.stdout.strip()) >= 20
 
 
+PORT_ENTRY_POINTS = sorted(
+    [os.path.join("examples", f) for f in os.listdir(
+        os.path.join(ROOT, "examples")) if f.startswith("torch_")]
+    + ["tools/dump_pipeline_torch.py"])
+
+
+def test_port_entry_points_are_listed():
+    assert PORT_ENTRY_POINTS == [
+        "examples/torch_opencl_runtime.py", "examples/torch_quickstart.py",
+        "examples/torch_serve_lm.py", "examples/torch_train_lm.py",
+        "tools/dump_pipeline_torch.py"]
+
+
+@pytest.mark.parametrize("rel", PORT_ENTRY_POINTS)
+def test_port_entry_points_import_neither_jax_nor_repro(rel):
+    """Loading an example or tool of the port (without running its main)
+    pulls in neither jax nor the reference package."""
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('m', {rel!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "assert callable(mod.main)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or "
+        "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, cwd=ROOT, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
 def test_chip_smoke_imports_neither_jax_nor_repro():
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         text = f.read()
