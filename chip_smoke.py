@@ -30,7 +30,11 @@ that of the reference's scan), then the hybrid, moe, encdec and vlm
 families at full width — and the replicated serving mesh: two replicas
 of smollm-135m on two ``cuda`` devices of the card, one killed
 mid-decode and its requests migrated to the other, and the port's
-quickstart and host-runtime examples on the card.
+quickstart and host-runtime examples on the card — and the
+distribution tooling: the trainer on a (1, 1) device mesh with its
+state as DTensors placed by the sharding rules and the kernels run on
+the local shards, the H100's measured figures, and the dry-run on the
+production mesh.
 Each phase prints one JSON line
 or more; any mismatch, build error or launch error raises and the script
 exits non-zero.
@@ -233,8 +237,8 @@ exits non-zero.
      (``repro_torch.suite.scoreboard``): the ``card`` shape set (phase
      5's sizes) over ``vector``, ``cuda``, ``coexec2`` (two ``cuda``
      devices of the card) and ``auto``, every tuning configuration, and
-     the ``ci`` set over ``loop``, ``vector`` and ``cuda`` with two
-     configurations a space and one timed launch; the peaks calibrated on
+     the ``ci`` set over ``loop``, ``vector`` and ``cuda`` with one
+     configuration a space (two before phase 23) and one timed launch; the peaks calibrated on
      the card beside the data sheet's, the markdown matrix, each cell's
      device and wall time and both fractions; the ``bitwise`` and
      ``winner_beats_worst`` gates must hold; the reports land in
@@ -308,10 +312,33 @@ exits non-zero.
      ``rmsnorm`` and ``decode_attention`` launches are printed.  Then
      ``examples/torch_quickstart.py`` and ``examples/torch_opencl_runtime.
      py`` run on the card, in parallel, and must exit 0;
- 23. the kernels line (each kernel with the shapes it ran at, ssd_scan's
-     and rmsnorm's phase-19 launches and rmsnorm's and decode_attention's
-     phase-22 launches beside), then the card's name and power limit,
-     then the result line.
+ 23. distribution and launch tooling (main path): (a) ``launch/mesh.py``
+     ``measure_hw``: bf16 ``matmul`` at 8192³ (median of 20), a 4 GiB
+     device-to-device copy and ``total_memory``, each beside ``HW``'s
+     data-sheet figure; (b) a one-rank NCCL group, ``make_host_mesh()``
+     (a (1, 1) ("data", "model") mesh on the card) and
+     ``Trainer(mesh=..., rules=...)`` with ``BASELINE_RULES`` pruned and
+     adapted to smollm-135m, against the one-device ``Trainer``: phase
+     11's configuration (full width, 8 × 2048, ``remat="block"``, bf16
+     over f32 masters, seed 0), 5 steps each on the same stream; the
+     losses within 1e-5 relative (whether bitwise is printed), ``rmsnorm``
+     and ``flash_attention`` launched on the mesh path, each run's step
+     seconds, ``max_memory_allocated`` and model-flops utilisation
+     (``launch/roofline.py`` ``model_flops`` and ``executed_flops`` over
+     the median step and 989 TFLOP/s); (c) ``launch/dryrun.py``
+     ``run_cell``: smollm-135m × train_4k on the fake 16 × 16 mesh (CUDA
+     fake tensors), its GiB a device, ``dominant`` and
+     ``roofline_fraction``, then (b)'s step on a fake (1, 1) mesh, whose
+     predicted peak over (b)'s measured one must lie in [0.5, 2.0]; (d)
+     the 4 of phase 6's requests with the fewest new tokens served by a
+     ``ServingEngine`` whose parameters and KV caches are DTensors on (b)'s
+     mesh, placed by ``DECODE_RULES``: every stream equal to phase 6's,
+     ``rmsnorm`` and ``decode_attention`` launched;
+ 24. the kernels line (each kernel with the shapes it ran at, ssd_scan's
+     and rmsnorm's phase-19 launches, rmsnorm's and decode_attention's
+     phase-22 launches and rmsnorm's and flash_attention's phase-23
+     launches beside), then the card's name and power limit, then the
+     result line.
 
 Launch counts are set to 0 just before each main-path phase and read
 just after it; launches made to compare a kernel with its plain version
@@ -376,6 +403,22 @@ KILL_AFTER = 16
 MESH_MORE = 4
 MESH_EXAMPLES = ("examples/torch_quickstart.py",
                  "examples/torch_opencl_runtime.py")
+
+# phase 23: distribution and launch tooling on the card.  (a) the card's
+# own bf16 matmul rate (8192^3, median of 20), copy rate (4 GiB) and memory
+# beside launch/mesh.py's data-sheet HW; (b) Trainer(mesh=...) on a (1, 1)
+# ("data", "model") mesh of a one-rank NCCL group, the rules BASELINE_RULES
+# pruned and adapted to smollm-135m, against the one-device Trainer: phase
+# 11's model, batch, context, remat and seed, MESH_STEPS steps each, the
+# losses within LOSS_REL_TOL relative; (c) the dry-run of smollm-135m x
+# train_4k on the fake 16 x 16 mesh, and of (b)'s step on a fake (1, 1)
+# mesh, whose predicted peak over (b)'s measured max_memory_allocated must
+# lie in MEM_RATIO; (d) MESH_SERVE of phase 6's requests served by an
+# engine on the (1, 1) mesh with DECODE_RULES, each stream phase 6's
+MESH_STEPS = 5
+MESH_SERVE = 4              # (d): phase 6's requests served on the mesh
+LOSS_REL_TOL = 1e-5
+MEM_RATIO = (0.5, 2.0)
 
 # phase 7: rmsnorm cases, (rows, d, x dtype, w dtype): a decode step's
 # shape first (its time is the kernels line's, and it is replayed from a
@@ -563,10 +606,12 @@ VML_SOURCE = "src/repro_torch/csrc/vml.cuh"
 # phase 16: the scoreboard at the card set (every configuration:
 # SB_REPEATS timed launches on the card, then one through Context.launch;
 # a cuda kernel's first launch, which loads its module, and the auto
-# device's, which tunes, are warm-ups) and at the ci set (two
+# device's, which tunes, are warm-ups) and at the ci set (SB_CI_CONFIGS
 # configurations a space, one timed launch of each kind: the loop target
-# steps work-items from the host, seconds a launch)
+# steps work-items from the host, seconds a launch; one since phase 23
+# took its time, every column, kernel and gate kept)
 SB_REPEATS = 2
+SB_CI_CONFIGS = 1
 SB_LIMIT_S = 240.0
 # phases 17 and 18: the new families served at full published width
 # through repro_torch.launch.serve, random weights from the seed; llama-
@@ -2561,7 +2606,8 @@ def scoreboards(ctx):
                       repeats=SB_REPEATS)
     ci = Scoreboard(ctx=ctx, table=table, shape_set="ci",
                     targets=("loop", "vector", "cuda"), warmup=0, repeats=1,
-                    max_configs=2, include_coexec=False, include_auto=False)
+                    max_configs=SB_CI_CONFIGS, include_coexec=False,
+                    include_auto=False)
     return card, ci
 
 
@@ -2619,8 +2665,8 @@ def kth_expert_dropped():
     from repro_torch.models import layers
     real = layers.moe_route
 
-    def route(x, router, cfg):
-        r = real(x, router, cfg)
+    def route(x, router, cfg, rules=None):
+        r = real(x, router, cfg, rules)
         keep = r["keep"].clone()
         keep[..., -1] = False
         return dict(r, keep=keep)
@@ -2644,8 +2690,8 @@ def enc_out_shifted():
     from repro_torch.models import model
     real = model._encode_audio
 
-    def shifted(params, frames, cfg):
-        out = real(params, frames, cfg)
+    def shifted(params, frames, cfg, rules=None):
+        out = real(params, frames, cfg, rules)
         return torch.cat([out[:, 1:], out[:, -1:]], dim=1)
 
     with plain_kernels():
@@ -3021,6 +3067,160 @@ def mesh_phase(torch, np, served):
     return launches
 
 
+def dist_phase(torch, np, served):
+    """Phase 23: the port's distribution and launch tooling on the card
+    (see :data:`MESH_STEPS`).  ``served`` is phase 6's (prompt, budget,
+    stream) per request.  Returns the kernels' launches in the mesh
+    trainer's run and in the mesh engine's."""
+    import statistics
+
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core.nvcc import BUILD_DIR
+    from repro_torch.data import data_iterator
+    from repro_torch.distributed.sharding import (DECODE_RULES,
+                                                  rules_for_model)
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import dryrun
+    from repro_torch.models import init_params
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.mesh import (HW, fake_mesh, make_host_mesh,
+                                         measure_hw)
+    from repro_torch.models.config import TRAIN_4K, ShapeConfig
+    from repro_torch.training import OptimizerConfig, TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    hw = measure_hw()
+    emit(23, part="a", measured=hw, datasheet=HW,
+         fraction={k: hw[k] / HW[k] for k in ("peak_flops_bf16", "hbm_bw",
+                                              "hbm_bytes")},
+         seconds=time.perf_counter() - t0)
+
+    # -- (b) the trainer on a (1, 1) mesh against the one-device trainer
+    t1 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get_config(TRAIN["arch"]),
+                              remat=TRAIN["remat"])
+    shape = ShapeConfig("phase23_train", TRAIN["seq"], TRAIN["batch"],
+                        "train")
+    tcfg = TrainConfig(log_every=1, opt=OptimizerConfig(
+        lr=TRAIN["lr"], warmup_steps=MESH_STEPS, total_steps=MESH_STEPS))
+    n_active = RL.active_params(cfg)
+    useful = RL.model_flops(cfg, shape, n_active, "train")
+    executed = RL.executed_flops(cfg, shape, n_active)
+    runs = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh()
+        rules = rules_for_model(cfg, mesh)
+        for name in ("one_device", "mesh"):
+            gc_collect(torch)
+            torch.cuda.reset_peak_memory_stats()
+            for k in KERNELS:
+                k.launches = 0
+            tr = Trainer(cfg, tcfg, mesh=mesh, rules=rules) \
+                if name == "mesh" else Trainer(cfg, tcfg)
+            tr.init(TRAIN["seed"])
+            it = data_iterator(cfg, TRAIN["batch"], TRAIN["seq"],
+                               seed=TRAIN["seed"])
+            hist = tr.run(it, MESH_STEPS)
+            it.close()
+            torch.cuda.synchronize()
+            med = statistics.median(tr.step_seconds)
+            runs[name] = {
+                "losses": [h["loss"] for h in hist],
+                "step_s": tr.step_seconds, "step_median_s": med,
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "launches": {k.name: k.launches for k in KERNELS},
+                "mfu_model": useful / med / HW["peak_flops_bf16"],
+                "mfu_executed": executed / med / HW["peak_flops_bf16"]}
+            del tr
+        served_d = serve_on_mesh(torch, mesh, served, init_params, Request,
+                                 ServingEngine, rules_for_model,
+                                 DECODE_RULES, KERNELS)
+    finally:
+        dist.destroy_process_group()
+    gc_collect(torch)
+    one, sharded = runs["one_device"], runs["mesh"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(sharded["losses"],
+                                                  one["losses"]))
+    emit(23, part="b", mesh=[1, 1], rules=str(rules), train=TRAIN,
+         steps=MESH_STEPS, model_flops=useful, executed_flops=executed,
+         runs=runs, loss_max_rel=rel, loss_rel_tol=LOSS_REL_TOL,
+         bitwise=sharded["losses"] == one["losses"],
+         seconds=time.perf_counter() - t1)
+    assert rel <= LOSS_REL_TOL, ("mesh trainer's losses", rel, runs)
+    assert sharded["launches"]["rmsnorm"] > 0 and \
+        sharded["launches"]["flash_attention"] > 0, \
+        ("a model kernel was not launched on the mesh path",
+         sharded["launches"])
+
+    # -- (c) the dry-run: production mesh, then (b)'s step predicted
+    t2 = time.perf_counter()
+    out_dir = str(BUILD_DIR / "dryrun")
+    rec = dryrun.run_cell(TRAIN["arch"], TRAIN_4K, out_dir=out_dir,
+                          verbose=False, device_type="cuda")
+    t_prod = time.perf_counter() - t2
+    host = fake_mesh((1, 1), ("data", "model"), "cuda")
+    try:
+        rec1 = dryrun.run_cell(TRAIN["arch"], shape, mesh=host,
+                               mesh_name="host1x1", cfg=cfg,
+                               out_dir=out_dir, verbose=False)
+    finally:
+        dist.destroy_process_group()
+    ratio = rec1["bytes_per_device"] / sharded["peak_bytes"]
+    keys = ("bytes_per_device", "argument_bytes", "temp_bytes", "dominant",
+            "roofline_fraction", "t_compute_eff", "t_memory_adj",
+            "t_collective", "hlo_gflops", "hlo_gbytes", "coll_gbytes",
+            "coll_counts", "model_gflops_per_chip", "t_compile_s")
+    emit(23, part="c", pod16x16={k: rec[k] for k in keys},
+         gib_per_device=rec["bytes_per_device"] / 2**30,
+         host1x1={k: rec1[k] for k in keys},
+         predicted_over_measured=ratio, limits=MEM_RATIO,
+         seconds_pod16x16=t_prod, seconds=time.perf_counter() - t2)
+    assert MEM_RATIO[0] <= ratio <= MEM_RATIO[1], \
+        ("the dry-run's peak against the card's", ratio)
+    emit(23, part="d", **served_d)
+    assert served_d["equal"] == served_d["requests"], served_d
+    assert served_d["launches"]["rmsnorm"] > 0 and \
+        served_d["launches"]["decode_attention"] > 0, served_d
+    emit(23, part="done", seconds=time.perf_counter() - t0)
+    return sharded["launches"], served_d["launches"]
+
+
+def serve_on_mesh(torch, mesh, served, init_params, Request, ServingEngine,
+                  rules_for_model, DECODE_RULES, KERNELS):
+    """Phase 23 (d): the MESH_SERVE of phase 6's requests with the
+    fewest new tokens, served by an engine whose parameters and caches
+    are DTensors on ``mesh`` placed by DECODE_RULES; each stream against
+    phase 6's."""
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    cfg = configs.get_config(SERVE["arch"])
+    params = init_params(cfg, torch.Generator().manual_seed(SERVE["seed"]),
+                         device=torch.device("cuda", 0))
+    rules = rules_for_model(cfg, mesh, DECODE_RULES)
+    eng = ServingEngine(cfg, params, batch_slots=SERVE["batch_slots"],
+                        max_seq=SERVE["max_seq"], rules=rules, mesh=mesh)
+    picked = sorted(served, key=lambda x: x[1])[:MESH_SERVE]
+    reqs = [Request(prompt=p.copy(), max_new_tokens=m)
+            for p, m, _ in picked]
+    for k in KERNELS:
+        k.launches = 0
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in KERNELS}
+    equal = sum(r.done and list(r.out_tokens) == list(s)
+                for r, (_, _, s) in zip(reqs, picked))
+    out = {"requests": len(reqs), "equal": equal, "rules": str(rules),
+           "errors": [repr(r.error)[:400] for r in reqs if r.error],
+           "tokens": sum(len(r.out_tokens or []) for r in reqs),
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    del eng, params
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3389,7 +3589,13 @@ def main() -> int:
             e["launches_phase22"] = mesh_launches[e["name"]]
     emit(22, part="done", seconds=time.perf_counter() - t22)
 
-    # -- 23. kernels line, card, result --------------------------------------------
+    # -- 23. distribution and launch tooling (main path) --------------------------
+    train_l, serve_l = dist_phase(torch, np, served6)
+    for e in entries:
+        if e["name"] in ("rmsnorm", "flash_attention", "decode_attention"):
+            e["launches_phase23"] = train_l[e["name"]] + serve_l[e["name"]]
+
+    # -- kernels line, card, result ---------------------------------------------
     print(json.dumps({"kernels": [
         {"name": e["name"], "route": "cuda",
          "source": e.get("source", KERNEL_SOURCE),
@@ -3398,8 +3604,8 @@ def main() -> int:
          "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
          "bound_by": e["bound_by"], "library_ms": e["library_ms"],
          "shapes": e.get("shapes", [e.get("shape")]),
-         **({k: e[k] for k in ("launches_phase19", "launches_phase22")
-             if k in e}),
+         **({k: e[k] for k in ("launches_phase19", "launches_phase22",
+                               "launches_phase23") if k in e}),
          "held_against_plain": True} for e in entries]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,7 @@ import threading
 from typing import Callable, Sequence
 
 import torch
+from torch._subclasses.fake_tensor import is_fake as is_fake_tensor
 
 from ..core.errors import InvalidArgError
 from ..core.nvcc import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, NvccJob, \
@@ -118,6 +119,15 @@ def check_cuda_tensor(name: str, t: torch.Tensor, device: torch.device,
         raise InvalidArgError(f"{name} is not contiguous")
 
 
+def is_fake(*tensors) -> bool:
+    """Whether a wrapper was handed fake tensors (the dry-run's,
+    :mod:`repro_torch.launch.dryrun`): it then gives back its kernel's
+    outputs, empty, and launches nothing: the counterpart of a kernel's
+    abstract evaluation, so the dry-run prices the card's path on any
+    device."""
+    return any(is_fake_tensor(t) for t in tensors)
+
+
 def refuse_grad(name: str, tensors, why: str) -> None:
     """Raise ``NotImplementedError`` when autograd would record a call of
     a kernel that has no backward: grad mode is on and an input requires
@@ -127,4 +137,5 @@ def refuse_grad(name: str, tensors, why: str) -> None:
         raise NotImplementedError(f"{name} has no backward: {why}")
 
 
-__all__ = ["CudaKernel", "DTYPE_CODES", "check_cuda_tensor", "refuse_grad"]
+__all__ = ["CudaKernel", "DTYPE_CODES", "check_cuda_tensor", "is_fake",
+           "refuse_grad"]

@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.errors import InvalidArgError
-from ._cuda import DTYPE_CODES, CudaKernel, check_cuda_tensor, refuse_grad
+from ._cuda import (DTYPE_CODES, CudaKernel, check_cuda_tensor, is_fake,
+                    refuse_grad)
 
 NEG_INF = -1e30
 TILE = 64                    # the CUDA kernel's key tile
@@ -104,6 +105,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     refuse_grad("decode_attention", tensors,
                 "no training path runs decode attention; a backward waits "
                 "for one (ROADMAP §B.2)")
+    if is_fake(*tensors):
+        return torch.empty_like(q)
     if all(t.device.type == "cpu" for t in tensors):
         return decode_attention_plain(q, k_cache, v_cache, lengths)
     if q.device.type != "cuda":

@@ -38,7 +38,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.errors import InvalidArgError
-from ._cuda import DTYPE_CODES, CudaKernel, check_cuda_tensor, refuse_grad
+from ._cuda import (DTYPE_CODES, CudaKernel, check_cuda_tensor, is_fake,
+                    refuse_grad)
 
 NEG_INF = -1e30
 BLOCK_K = 64                 # the CUDA kernel's key tile
@@ -133,6 +134,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     refuse_grad("flash_attention", (q, k, v),
                 "call repro_torch.models.flash.FlashAttention, whose "
                 "backward is the blocked backward of models/flash.py")
+    if is_fake(q, k, v):
+        return torch.empty_like(q), torch.empty(
+            q.shape[:3], dtype=torch.float32, device=q.device)
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_plain(q, k, v, causal, sm_scale)
     if q.device.type != "cuda":

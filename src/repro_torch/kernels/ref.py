@@ -15,12 +15,29 @@ import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` in the promoted dtype of the two, as jnp.einsum does."""
+    """``a @ b`` in the promoted dtype of the two, as jnp.einsum does.
+
+    A DTensor (B, S, d) whose S is cut is gathered over S first (the
+    sequence-parallel residual entering a tensor-parallel product, as
+    Megatron gathers it), and made contiguous: ``matmul`` flattens
+    (B, S) into rows, which DTensor refuses with S cut, or as a view of
+    a strided local tensor, in some PyTorch versions (2.11)."""
     dt = torch.promote_types(a.dtype, b.dtype)
-    return torch.matmul(a.to(dt), b.to(dt))
+    a, b = a.to(dt), b.to(dt)
+    if isinstance(a, DTensor) and a.dim() == 3:
+        a = a.redistribute(a.device_mesh, [
+            Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+            for p in a.placements])
+        if not a.to_local().is_contiguous():
+            # DTensor's own contiguous() looks at the global strides
+            a = DTensor.from_local(a.to_local().contiguous(), a.device_mesh,
+                                   a.placements, run_check=False,
+                                   shape=a.shape, stride=a.stride())
+    return torch.matmul(a, b)
 
 
 def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:

@@ -25,7 +25,7 @@ import torch
 
 from .. import vml
 from ..core.errors import InvalidArgError
-from ._cuda import DTYPE_CODES, CudaKernel, check_cuda_tensor
+from ._cuda import DTYPE_CODES, CudaKernel, check_cuda_tensor, is_fake
 
 KERNEL = CudaKernel(
     "rmsnorm", "rmsnorm.cu", "rmsnorm_launch",
@@ -48,6 +48,8 @@ def _rmsnorm_forward(x: torch.Tensor, w: torch.Tensor,
     """The kernel for CUDA tensors (checked for device, dtype, shape and
     contiguity first; anything else raises), :func:`rmsnorm_plain` for
     CPU tensors."""
+    if is_fake(x, w):
+        return torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return rmsnorm_plain(x, w, eps)
     if x.device.type != "cuda":

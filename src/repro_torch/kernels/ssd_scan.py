@@ -44,7 +44,7 @@ import torch.nn.functional as F
 
 from ..core.errors import InvalidArgError
 from . import ref
-from ._cuda import DTYPE_CODES, CudaKernel, check_cuda_tensor
+from ._cuda import DTYPE_CODES, CudaKernel, check_cuda_tensor, is_fake
 
 MAX_CHUNK = 64               # the kernel's L x L tile of the decay matrix
 MAX_STATE = 256              # B and C chunks of L x N in shared memory
@@ -134,6 +134,10 @@ def _ssd_scan_forward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """The kernel for CUDA tensors (checked first; anything else raises),
     :func:`ssd_scan_plain` for CPU tensors."""
     tensors = (x, dt, A, B, C)
+    if is_fake(*tensors):
+        b, s, h, p = x.shape
+        return torch.empty_like(x), torch.empty(
+            (b, h, p, B.shape[3]), dtype=torch.float32, device=x.device)
     if all(t.device.type == "cpu" for t in tensors):
         return ssd_scan_plain(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":

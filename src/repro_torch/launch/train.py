@@ -11,7 +11,13 @@ one), on the first CUDA device unless ``--device`` names another
 (``--device cpu`` runs the kernels' plain versions); with no card and no
 ``--device`` it raises :class:`~repro_torch.runtime.DeviceNotFoundError`.
 ``--remat`` overrides the config's per-block checkpointing (none | block
-| full | dots).  The loop is restart-safe: rerunning with the same
+| full | dots).  ``--mesh DATAxMODEL`` trains on a ("data", "model")
+mesh of that shape over the live process group
+(:func:`~repro_torch.launch.mesh.make_host_mesh`: every rank of a
+``torchrun`` world, or a one-rank group it starts itself), its state
+placed by the sharding rules as the reference builds them
+(``BASELINE_RULES`` pruned to the mesh, then adapted to the model); the
+default is the one-device trainer.  The loop is restart-safe: rerunning with the same
 ``--ckpt-dir`` resumes from the last checkpoint.  It prints and returns
 the history, the host seconds of each step and the tokens per second.
 """
@@ -27,7 +33,9 @@ from typing import Dict
 
 from .. import configs
 from ..data import data_iterator
+from ..distributed.sharding import rules_for_model
 from ..training import OptimizerConfig, TrainConfig, Trainer
+from .mesh import make_host_mesh
 
 
 def parse_args(argv=None):
@@ -51,6 +59,9 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device to train on (default: the first "
                          "CUDA device); 'cpu' for tests")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="train on a (data, model) mesh of this shape "
+                         "(default: one device)")
     return ap.parse_args(argv)
 
 
@@ -66,9 +77,20 @@ def main(argv=None) -> Dict:
         ckpt_every=args.ckpt_every, log_every=args.log_every,
         opt=OptimizerConfig(lr=args.lr, warmup_steps=min(100, args.steps),
                             total_steps=args.steps))
-    trainer = Trainer(cfg, tcfg, device=args.device)
+    if args.mesh:
+        data, model = (int(x) for x in args.mesh.lower().split("x"))
+        mesh = make_host_mesh(model_axis=model, device=args.device)
+        if mesh.size() != data * model:
+            raise ValueError(f"--mesh {args.mesh}: the process group has "
+                             f"{mesh.size()} ranks")
+        trainer = Trainer(cfg, tcfg, mesh=mesh,
+                          rules=rules_for_model(cfg, mesh))
+    else:
+        trainer = Trainer(cfg, tcfg, device=args.device)
     start = trainer.init(args.seed)
-    print(f"training {cfg.name} from step {start} on {trainer.device} "
+    where = f"mesh {args.mesh} ({trainer.device.type})" if args.mesh \
+        else str(trainer.device)
+    print(f"training {cfg.name} from step {start} on {where} "
           f"(batch={args.batch} seq={args.seq} remat={cfg.remat})")
     it = data_iterator(cfg, args.batch, args.seq, start_step=start,
                        seed=args.seed)

@@ -8,24 +8,30 @@ cache, causal or not, and cross-attention to ``kv_x``), the ``mlp``
 (``attn_block``, ``cross_block``, ``encdec_block``); the Mamba-2 mixer
 (``_causal_conv``, ``mamba2``) and ``mamba_block``.  The math and the
 dtypes follow the reference (its einsums become matmuls in the promoted
-dtype); the sharding annotations (``constrain``) are dropped, since the
-port runs on one card.  Kernels are swapped in at the
-:mod:`repro_torch.kernels.ops` dispatch layer.
+dtype).  Each layer takes the sharding ``rules`` and constrains its
+tensors by logical axis names at the reference's places
+(:func:`repro_torch.distributed.sharding.constrain`): on a mesh, where the
+parameters and the batch are DTensors, that redistributes them to the
+rules' placements; with plain tensors or ``rules=None`` it does nothing.
+Kernels are swapped in at the :mod:`repro_torch.kernels.ops` dispatch
+layer, which runs them on the local shards of DTensors.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from .. import vml
+from ..distributed.sharding import ShardingRules, constrain
 from ..kernels import ops
 from ..kernels.ref import matmul, promoted
 from .config import ModelConfig
-from .flash import blocked_attention
 
 Params = Dict[str, torch.Tensor]
 
@@ -49,7 +55,18 @@ def norm(x, p: Params, cfg: ModelConfig, eps: float = 1e-6):
 
 def activation(x, cfg: ModelConfig):
     """silu, or gelu with the tanh approximation (``jax.nn.gelu``'s
-    default), from vml under ``cfg.use_vml_act``."""
+    default), from vml under ``cfg.use_vml_act``.  A DTensor goes
+    through its local shards (a partial sum reduced first): vml's bit
+    tricks shift int32 views, and DTensor's ``<<`` returns its input
+    unshifted."""
+    if isinstance(x, DTensor):
+        pl = [Replicate() if isinstance(p, Partial) else p
+              for p in x.placements]
+        x = x.redistribute(x.device_mesh, pl)
+        # the global shape given, for shards that are not all alike
+        return DTensor.from_local(activation(x.to_local(), cfg),
+                                  x.device_mesh, pl, run_check=False,
+                                  shape=x.shape, stride=x.stride())
     if cfg.use_vml_act:
         return vml.silu(x) if cfg.act == "silu" else vml.gelu_tanh(x)
     return F.silu(x) if cfg.act == "silu" \
@@ -73,7 +90,46 @@ def rope(x, positions, theta: float):
 # attention block
 # ---------------------------------------------------------------------------
 
-def attention(x, p: Params, cfg: ModelConfig, *, positions,
+# On a mesh, a (heads x head_dim) dim flattened for a matmul is placed as
+# its heads are, on both sides of the reshape: DTensor splits a flat dim
+# into (heads, head_dim) only where its cut divides the heads, and the
+# constraint also places the gradient that comes back through the
+# reshape.  With plain tensors both are plain reshapes.
+
+def _flat_heads(w, rules, heads: str):
+    """A (d, heads, head_dim) projection as (d, heads * head_dim)."""
+    d, h, k = w.shape
+    return constrain(w.reshape(d, h * k), rules, "embed_fsdp", heads)
+
+
+def _split_heads(t, rules, heads: str, n: int):
+    """A (B, S, n * head_dim) product as (B, S, n, head_dim)."""
+    B, S, f = t.shape
+    return constrain(t, rules, "batch", "seq", heads).view(B, S, n, f // n)
+
+
+def _whole(t):
+    """A DTensor's whole value (a plain tensor as it is)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _written(cache):
+    """What a decode step writes its keys and values into: a DTensor
+    cache every rank holds whole is written in its local tensor
+    (DTensor's in-place ``index_put_`` fails there in some PyTorch
+    versions, 2.11); a cache cut over the mesh raises, its rows' writes
+    waiting for ROADMAP A.14."""
+    if not isinstance(cache, DTensor):
+        return cache
+    if any(isinstance(p, Shard) for p in cache.placements):
+        raise NotImplementedError(
+            f"decode into a KV cache cut over the mesh "
+            f"({list(cache.placements)}): waits for ROADMAP A.14")
+    return cache.to_local()
+
+
+def attention(x, p: Params, cfg: ModelConfig,
+              rules: Optional[ShardingRules] = None, *, positions,
               causal: bool = True, kv_x=None, use_rope: bool = True,
               cache: Optional[Tuple] = None):
     """Self- or cross-attention (to ``kv_x``, (B, T, d): no RoPE on its
@@ -89,9 +145,15 @@ def attention(x, p: Params, cfg: ModelConfig, *, positions,
     H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.hd
     src = kv_x if kv_x is not None else x
     T = src.shape[1]
-    q = matmul(x, p["wq"].reshape(d, H * hd)).view(B, S, H, hd)
-    k = matmul(src, p["wk"].reshape(d, KV * hd)).view(B, T, KV, hd)
-    v = matmul(src, p["wv"].reshape(d, KV * hd)).view(B, T, KV, hd)
+    q = _split_heads(matmul(x, _flat_heads(p["wq"], rules, "heads")),
+                     rules, "heads", H)
+    q = constrain(q, rules, "batch", "seq", "heads", "head_dim")
+    k = _split_heads(matmul(src, _flat_heads(p["wk"], rules, "kv_heads")),
+                     rules, "kv_heads", KV)
+    v = _split_heads(matmul(src, _flat_heads(p["wv"], rules, "kv_heads")),
+                     rules, "kv_heads", KV)
+    k = constrain(k, rules, "batch", "seq", "kv_heads", "head_dim")
+    v = constrain(v, rules, "batch", "seq", "kv_heads", "head_dim")
 
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
@@ -108,19 +170,21 @@ def attention(x, p: Params, cfg: ModelConfig, *, positions,
             # dynamic_update_slice clamps the start into the cache; so
             # does the clamp here.
             rows = torch.arange(B, device=x.device)
-            pos = lengths.to(torch.int64).clamp(0, k_cache.shape[2] - 1)
-            k_cache[rows, :, pos] = k[:, 0].to(k_cache.dtype)
-            v_cache[rows, :, pos] = v[:, 0].to(v_cache.dtype)
+            pos = _whole(lengths).to(torch.int64) \
+                .clamp(0, k_cache.shape[2] - 1)
+            _written(k_cache)[rows, :, pos] = _whole(k[:, 0]) \
+                .to(k_cache.dtype)
+            _written(v_cache)[rows, :, pos] = _whole(v[:, 0]) \
+                .to(v_cache.dtype)
             o = ops.decode_attention(q[:, 0], k_cache, v_cache, lengths + 1,
-                                     use_kernels=cfg.use_kernels)
+                                     use_kernels=cfg.use_kernels, rules=rules)
             out = o[:, None]                          # (B,1,H,D)
             new_cache = (k_cache, v_cache, lengths + 1)
         else:
             # prefill: attend causally over the fresh K/V, then write the
             # whole prompt into the cache at position 0, in place
-            out = blocked_attention(q, k, v, causal=True,
-                                    block_q=cfg.attn_block_q,
-                                    block_k=cfg.attn_block_k)
+            out = ops.blocked_attention(q, k, v, True, cfg.attn_block_q,
+                                        cfg.attn_block_k, rules)
             k_cache[:, :, :S] = k.transpose(1, 2).to(k_cache.dtype)
             v_cache[:, :, :S] = v.transpose(1, 2).to(v_cache.dtype)
             new_cache = (k_cache, v_cache, lengths + S)
@@ -131,14 +195,18 @@ def attention(x, p: Params, cfg: ModelConfig, *, positions,
         out = ops.attention(
             q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
             v.transpose(1, 2).contiguous(), causal=causal, use_kernels=True,
-            block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
+            block_q=cfg.attn_block_q, block_k=cfg.attn_block_k, rules=rules,
         ).transpose(1, 2)
     else:
-        out = blocked_attention(q, k, v, causal=causal and kv_x is None,
-                                block_q=cfg.attn_block_q,
-                                block_k=cfg.attn_block_k)
+        out = ops.blocked_attention(q, k, v, causal and kv_x is None,
+                                    cfg.attn_block_q, cfg.attn_block_k,
+                                    rules)
 
-    y = matmul(out.reshape(B, S, H * hd), p["wo"].reshape(H * hd, d))
+    out = constrain(out, rules, "batch", "seq", "heads", "head_dim")
+    wo = constrain(p["wo"].reshape(H * hd, d), rules, "heads", "embed_fsdp")
+    y = matmul(constrain(out.reshape(B, S, H * hd), rules, "batch", "seq",
+                         "heads"), wo)
+    y = constrain(y, rules, "batch", "act_seq", "d_model")
     return y, new_cache
 
 
@@ -146,7 +214,8 @@ def attention(x, p: Params, cfg: ModelConfig, *, positions,
 # FFN
 # ---------------------------------------------------------------------------
 
-def mlp(x, p: Params, cfg: ModelConfig):
+def mlp(x, p: Params, cfg: ModelConfig,
+        rules: Optional[ShardingRules] = None):
     """The MLP: activation(x @ w_gate) * (x @ w_up) @ w_down where it is
     gated, activation(x @ w_up) @ w_down where not (gelu)."""
     h = matmul(x, p["w_up"])
@@ -154,10 +223,13 @@ def mlp(x, p: Params, cfg: ModelConfig):
         h = activation(matmul(x, p["w_gate"]), cfg) * h
     else:
         h = activation(h, cfg)
-    return matmul(h, p["w_down"])
+    h = constrain(h, rules, "batch", "seq", "mlp")
+    return constrain(matmul(h, p["w_down"]), rules, "batch", "act_seq",
+                     "d_model")
 
 
-def moe_route(x, router, cfg: ModelConfig):
+def moe_route(x, router, cfg: ModelConfig,
+              rules: Optional[ShardingRules] = None):
     """The MoE's routing, as the reference's ``moe`` takes it: tokens in
     groups of ``g = min(cfg.moe_group, S)`` (S padded with zero tokens to
     a multiple, which claim no capacity), router probabilities in float32,
@@ -179,7 +251,11 @@ def moe_route(x, router, cfg: ModelConfig):
     Sp = S + pad
     G = (B * Sp) // g
     C = max(1, int(g * K * cfg.capacity_factor / E))
-    xt = x.reshape(G, g, d)
+    # on a mesh the tokens regroup with only their batch dim cut, and the
+    # groups' gradient comes back so placed: DTensor regroups a cut
+    # sequence, or groups cut over more dims than B has, wrongly
+    xt = constrain(constrain(x, rules, "batch", "seq", "d_model")
+                   .reshape(G, g, d), rules, "batch", None, "d_model")
     valid = (torch.arange(Sp, device=x.device) < S)[None] \
         .expand(B, Sp).reshape(G, g)
     logits = matmul(xt, router).to(torch.float32)
@@ -197,7 +273,20 @@ def moe_route(x, router, cfg: ModelConfig):
             "keep": pos < C, "C": C}
 
 
-def moe(x, p: Params, cfg: ModelConfig):
+def _expert_ffn(xin, w_up, w_gate, w_down, cfg: ModelConfig,
+                rules: Optional[ShardingRules] = None):
+    """The experts' gated FFN over their (E, G, C, d) slots (on a mesh
+    it runs on local shards, where the constraint is the reference's
+    placement of ``h`` and does nothing)."""
+    up = torch.einsum("egcd,edf->egcf", *promoted(xin, w_up))
+    gt = torch.einsum("egcd,edf->egcf", *promoted(xin, w_gate))
+    h = activation(gt, cfg) * up
+    h = constrain(h, rules, "experts", "batch", "moe_capacity", "expert_mlp")
+    return torch.einsum("egcf,efd->egcd", *promoted(h, w_down))
+
+
+def moe(x, p: Params, cfg: ModelConfig,
+        rules: Optional[ShardingRules] = None):
     """Token-choice top-k MoE with capacity dropping (:func:`moe_route`),
     the dispatch and the expert products as the reference's einsums, and
     the Switch load-balancing aux loss.  Returns (y, aux).
@@ -210,7 +299,7 @@ def moe(x, p: Params, cfg: ModelConfig):
     group.  Where S is a multiple of the group the two are the same."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    r = moe_route(x, p["router"], cfg)
+    r = moe_route(x, p["router"], cfg, rules)
     xt, valid, C = r["xt"], r["valid"], r["C"]
     G, g = valid.shape
     # dispatch: (G, g, E, C) one-hot over (expert, slot), per k
@@ -228,10 +317,21 @@ def moe(x, p: Params, cfg: ModelConfig):
             * r["gate_vals"][..., kk, None, None]
 
     xin = torch.einsum("gsec,gsd->egcd", *promoted(disp, xt))
-    up = torch.einsum("egcd,edf->egcf", *promoted(xin, p["w_up"]))
-    gt = torch.einsum("egcd,edf->egcf", *promoted(xin, p["w_gate"]))
-    h = activation(gt, cfg) * up
-    eo = torch.einsum("egcf,efd->egcd", *promoted(h, p["w_down"]))
+    # the token-group dim stays sharded on the data axis: the dispatch is
+    # an all-to-all over (data -> experts), not a gather of all tokens
+    xin = constrain(xin, rules, "experts", "batch", "moe_capacity",
+                    "d_model")
+    w = (p["w_up"], p["w_gate"], p["w_down"])
+    if isinstance(xin, DTensor):
+        # on a mesh the experts' FFN runs on each rank's experts, groups
+        # and slots
+        eo = ops.expertwise(functools.partial(_expert_ffn, cfg=cfg), xin, *w)
+    else:
+        eo = _expert_ffn(xin, *w, cfg, rules)
+    eo = constrain(eo, rules, "experts", "batch", "moe_capacity", "d_model")
+    if isinstance(eo, DTensor):     # the combine takes every slot whole
+        eo = constrain(eo, rules, None, "batch", None,
+                       "d_model").contiguous()
     y = torch.einsum("gsec,egcd->gsd", *promoted(comb.to(x.dtype), eo))
 
     # load-balancing auxiliary loss (Switch-style), over the real tokens
@@ -242,52 +342,55 @@ def moe(x, p: Params, cfg: ModelConfig):
           * vf).sum(dim=1) / n / K
     aux = E * torch.mean(torch.sum(me * ce, dim=-1))
     y = y.reshape(B, -1, d)[:, :S]
-    return y, aux
+    return constrain(y, rules, "batch", "act_seq", "d_model"), aux
 
 
 # ---------------------------------------------------------------------------
 # residual blocks
 # ---------------------------------------------------------------------------
 
-def attn_block(x, p: Params, cfg: ModelConfig, *, positions, causal=True,
-               use_rope=True, cache=None):
+def attn_block(x, p: Params, cfg: ModelConfig,
+               rules: Optional[ShardingRules] = None, *, positions,
+               causal=True, use_rope=True, cache=None):
     """pre-norm attention + FFN block (the MoE FFN where the block has a
     router); returns (x, aux_loss, new_cache), the aux loss a float32 0
     where there is no MoE."""
-    h, new_cache = attention(norm(x, p["ln1"], cfg), p["attn"], cfg,
+    h, new_cache = attention(norm(x, p["ln1"], cfg), p["attn"], cfg, rules,
                              positions=positions, causal=causal,
                              use_rope=use_rope, cache=cache)
     x = x + h
     if cfg.family == "moe" and "router" in p["ffn"]:
-        h, aux = moe(norm(x, p["ln2"], cfg), p["ffn"], cfg)
+        h, aux = moe(norm(x, p["ln2"], cfg), p["ffn"], cfg, rules)
     else:
-        h = mlp(norm(x, p["ln2"], cfg), p["ffn"], cfg)
+        h = mlp(norm(x, p["ln2"], cfg), p["ffn"], cfg, rules)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + h, aux, new_cache
 
 
-def cross_block(x, p: Params, cfg: ModelConfig, *, kv_x, positions):
+def cross_block(x, p: Params, cfg: ModelConfig,
+                rules: Optional[ShardingRules] = None, *, kv_x, positions):
     """Gated cross-attention block (llama-3.2-vision style): x plus
     tanh(gate) times the attention of norm(x) to ``kv_x``."""
-    h, _ = attention(norm(x, p["ln"], cfg), p["xattn"], cfg,
+    h, _ = attention(norm(x, p["ln"], cfg), p["xattn"], cfg, rules,
                      positions=positions, causal=False, kv_x=kv_x,
                      use_rope=False)
     return x + (torch.tanh(p["gate"].to(torch.float32)) * h).to(x.dtype)
 
 
-def encdec_block(x, p: Params, cfg: ModelConfig, *, enc_out, positions,
-                 cache=None):
+def encdec_block(x, p: Params, cfg: ModelConfig,
+                 rules: Optional[ShardingRules] = None, *, enc_out,
+                 positions, cache=None):
     """Whisper decoder block: causal self-attention (no RoPE), then
     cross-attention to ``enc_out``, then the MLP; returns (x, new_cache)."""
-    h, new_cache = attention(norm(x, p["ln1"], cfg), p["attn"], cfg,
+    h, new_cache = attention(norm(x, p["ln1"], cfg), p["attn"], cfg, rules,
                              positions=positions, causal=True,
                              use_rope=False, cache=cache)
     x = x + h
-    h, _ = attention(norm(x, p["lnx"], cfg), p["xattn"], cfg,
+    h, _ = attention(norm(x, p["lnx"], cfg), p["xattn"], cfg, rules,
                      positions=positions, causal=False, kv_x=enc_out,
                      use_rope=False)
     x = x + h
-    h = mlp(norm(x, p["ln2"], cfg), p["ffn"], cfg)
+    h = mlp(norm(x, p["ln2"], cfg), p["ffn"], cfg, rules)
     return x + h, new_cache
 
 
@@ -304,6 +407,9 @@ def _causal_conv(u, w, b, state=None):
         window = torch.cat(promoted(state, u), dim=1)     # (B,W,C) for S=1
         y = torch.einsum("bwc,wc->bc", *promoted(window[:, -W:], w))
         return (y + b)[:, None], window[:, 1:]
+    if isinstance(u, DTensor):      # on each sequence's local channels
+        return ops.channelwise(lambda u, w, b: _causal_conv(u, w, b)[0],
+                               u, w, b), None
     pad = F.pad(u, (0, 0, W - 1, 0))
     S = u.shape[1]
     y = 0
@@ -321,7 +427,9 @@ def _conv_window(u_raw, W: int):
     return F.pad(tail, (0, 0, short, 0)) if short else tail
 
 
-def mamba2(x, p: Params, cfg: ModelConfig, *, cache: Optional[Tuple] = None):
+def mamba2(x, p: Params, cfg: ModelConfig,
+           rules: Optional[ShardingRules] = None, *,
+           cache: Optional[Tuple] = None):
     """Mamba-2 SSD mixer.  cache=(conv_x, conv_B, conv_C, ssd_state); with
     one token it is a decode step, with more a prefill that starts from
     a zero state.  Returns (out, new_cache).
@@ -342,6 +450,7 @@ def mamba2(x, p: Params, cfg: ModelConfig, *, cache: Optional[Tuple] = None):
     Bp = matmul(x, p["w_B"])
     Cp = matmul(x, p["w_C"])
     dt = matmul(x, p["w_dt"])
+    u = constrain(u, rules, "batch", "seq", "conv_dim")
 
     decode = cache is not None and S == 1
     cx = cB = cC = st = None
@@ -356,10 +465,17 @@ def mamba2(x, p: Params, cfg: ModelConfig, *, cache: Optional[Tuple] = None):
     u, Bp, Cp = activation(u, cfg), activation(Bp, cfg), activation(Cp, cfg)
 
     xs = u.reshape(B, S, Hh, P)
+    xs = constrain(xs, rules, "batch", "seq", "ssm_heads", None)
     Bm = Bp.reshape(B, S, Gq, N)
     Cm = Cp.reshape(B, S, Gq, N)
     dt = _softplus(dt + p["dt_bias"])
     A = -torch.exp(p["A_log"].to(torch.float32))
+    # the scan's other inputs placed as its kernel takes them on a mesh
+    # (the groups whole; no-ops on plain tensors)
+    Bm = constrain(Bm, rules, "batch", "seq", None, None)
+    Cm = constrain(Cm, rules, "batch", "seq", None, None)
+    dt = constrain(dt, rules, "batch", "seq", "ssm_heads")
+    A = constrain(A, rules, "ssm_heads")
 
     new_cache = None
     if decode:
@@ -370,17 +486,21 @@ def mamba2(x, p: Params, cfg: ModelConfig, *, cache: Optional[Tuple] = None):
     else:
         y, final_state = ops.ssd_scan(xs, dt, A, Bm, Cm,
                                       chunk=cfg.ssm_chunk,
-                                      use_kernels=cfg.use_kernels)
+                                      use_kernels=cfg.use_kernels,
+                                      rules=rules)
         if cache is not None:   # prefill: stash streaming window + state
             new_cache = (_conv_window(u_raw, W), _conv_window(B_raw, W),
                          _conv_window(C_raw, W), final_state)
 
     y = y.to(x.dtype) + xs * p["D"][None, None, :, None].to(xs.dtype)
     y = y.reshape(B, S, Hh * P)
-    # gated RMSNorm (Mamba-2 norm before out-proj)
-    y = ops.rmsnorm(y * activation(z, cfg), p["norm_w"],
-                    use_kernels=cfg.use_kernels)
-    return matmul(y, p["w_out"]), new_cache
+    # gated RMSNorm (Mamba-2 norm before out-proj), over the whole inner
+    # dim: the kernel takes rows whole, so on a mesh the (model-cut)
+    # channels are gathered first
+    y = constrain(y * activation(z, cfg), rules, "batch", "seq", None)
+    y = ops.rmsnorm(y, p["norm_w"], use_kernels=cfg.use_kernels)
+    return constrain(matmul(y, p["w_out"]), rules, "batch", "act_seq",
+                     "d_model"), new_cache
 
 
 def _softplus(x):
@@ -389,8 +509,9 @@ def _softplus(x):
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
-def mamba_block(x, p: Params, cfg: ModelConfig, *, cache=None):
-    h, new_cache = mamba2(norm(x, p["ln1"], cfg), p["mixer"], cfg,
+def mamba_block(x, p: Params, cfg: ModelConfig,
+                rules: Optional[ShardingRules] = None, *, cache=None):
+    h, new_cache = mamba2(norm(x, p["ln1"], cfg), p["mixer"], cfg, rules,
                           cache=cache)
     return x + h, new_cache
 

@@ -6,7 +6,10 @@ ssm, hybrid, vlm and encdec families (a Python loop over the stacked
 layers where the reference scanned them) with per-block remat in
 training (:func:`_maybe_remat`), the forward entry point with the vlm's
 image and the encdec's audio-frame embeddings as auxiliary inputs, the
-training loss (:func:`loss_fn`), and the caches.
+training loss (:func:`loss_fn`), and the caches.  ``rules`` (the
+sharding rules of a mesh, :mod:`repro_torch.distributed.sharding`) go
+down to every layer; the embedding and the logits are constrained at the
+reference's places.  ``rules=None`` is the one-device model.
 """
 
 from __future__ import annotations
@@ -16,9 +19,13 @@ import math
 from typing import Any, Dict, Mapping, Optional, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..distributed.sharding import (ShardingRules, constrain,
+                                    implicit_replication)
+from ..kernels import ops
 from ..kernels.ref import matmul
 from . import layers
 from . import params as P
@@ -104,18 +111,28 @@ def _maybe_remat(fn, cfg: ModelConfig):
 # embedding / head
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params: Params, tokens, cfg: ModelConfig):
+def embed_tokens(params: Params, tokens, cfg: ModelConfig,
+                 rules: Optional[ShardingRules] = None):
     # T5-style sqrt(d) embedding scale, in the table's dtype
     emb = params["embed"]
     scale = torch.tensor(math.sqrt(cfg.d_model), dtype=emb.dtype,
                          device=emb.device)
-    return emb[tokens] * scale
+    rows = ops.embedding(emb, tokens) if isinstance(emb, DTensor) \
+        else emb[tokens]
+    return constrain(rows * scale, rules, "batch", "act_seq", "d_model")
 
 
-def lm_head(params: Params, x, cfg: ModelConfig):
+def lm_head(params: Params, x, cfg: ModelConfig,
+            rules: Optional[ShardingRules] = None):
     x = layers.norm(x, params["ln_f"], cfg)
     w = params["unembed"] if "unembed" in params else params["embed"].T
     logits = matmul(x, w)
+    # seq and vocab cannot both land on "model"; prefer the seq sharding
+    # when sequence parallelism is on (CE is then fully token-parallel)
+    if rules is not None and rules.act_seq is not None:
+        logits = constrain(logits, rules, "batch", "act_seq", None)
+    else:
+        logits = constrain(logits, rules, "batch", "seq", "vocab")
     if cfg.padded_vocab != cfg.vocab:   # mask padded vocab rows
         pad_mask = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab
         logits = torch.where(pad_mask, logits,
@@ -131,13 +148,14 @@ def _zero_aux(x):
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _dense_backbone(params, x, cfg, *, positions, caches, mode):
+def _dense_backbone(params, x, cfg, rules=None, *, positions, caches,
+                    mode):
     """The attention stack of the dense and moe families; returns (x,
     the summed MoE aux loss, new caches).  With caches, each layer writes
     its K/V into ``caches["k"][i]`` and ``caches["v"][i]`` (views of the
     stacked caches) in place."""
     def block(x, lp):
-        y, a, _ = layers.attn_block(x, lp, cfg, positions=positions)
+        y, a, _ = layers.attn_block(x, lp, cfg, rules, positions=positions)
         return y, a
 
     if mode == "train":
@@ -149,7 +167,7 @@ def _dense_backbone(params, x, cfg, *, positions, caches, mode):
             x, a = block(x, lp)
         else:
             x, a, _ = layers.attn_block(
-                x, lp, cfg, positions=positions,
+                x, lp, cfg, rules, positions=positions,
                 cache=(caches["k"][i], caches["v"][i], caches["len"]))
         aux = aux + a
     if caches is None:
@@ -158,7 +176,7 @@ def _dense_backbone(params, x, cfg, *, positions, caches, mode):
                     "len": caches["len"] + x.shape[1]}
 
 
-def _ssm_backbone(params, x, cfg, *, positions, caches, mode):
+def _ssm_backbone(params, x, cfg, rules=None, *, positions, caches, mode):
     """The Mamba-2 stack of the ssm family, and of the hybrid family
     (zamba2-style), where ONE shared attention block (unstacked
     parameters, ``params["shared_attn"]``) follows every
@@ -172,10 +190,10 @@ def _ssm_backbone(params, x, cfg, *, positions, caches, mode):
     every = cfg.attn_every if hybrid else 0
 
     def mblock(x, lp):
-        return layers.mamba_block(x, lp, cfg)[0]
+        return layers.mamba_block(x, lp, cfg, rules)[0]
 
     def ablock(x, lp):
-        return layers.attn_block(x, lp, cfg, positions=positions)[0]
+        return layers.attn_block(x, lp, cfg, rules, positions=positions)[0]
 
     if mode == "train":
         mblock, ablock = _maybe_remat(mblock, cfg), _maybe_remat(ablock, cfg)
@@ -187,7 +205,7 @@ def _ssm_backbone(params, x, cfg, *, positions, caches, mode):
         else:
             lc = (caches["conv_x"][i], caches["conv_B"][i],
                   caches["conv_C"][i], caches["ssd"][i])
-            x, nc = layers.mamba_block(x, lp, cfg, cache=lc)
+            x, nc = layers.mamba_block(x, lp, cfg, rules, cache=lc)
             for acc, w in zip(windows, nc[:3]):
                 acc.append(w)
             caches["ssd"][i].copy_(nc[3])
@@ -197,7 +215,7 @@ def _ssm_backbone(params, x, cfg, *, positions, caches, mode):
             else:
                 app = (i + 1) // every - 1
                 x, _, _ = layers.attn_block(
-                    x, params["shared_attn"], cfg, positions=positions,
+                    x, params["shared_attn"], cfg, rules, positions=positions,
                     cache=(caches["attn_k"][app], caches["attn_v"][app],
                            caches["len"]))
     if caches is None:
@@ -211,18 +229,19 @@ def _ssm_backbone(params, x, cfg, *, positions, caches, mode):
     return x, _zero_aux(x), out
 
 
-def _vlm_backbone(params, x, cfg, *, positions, img_embeds, caches, mode):
+def _vlm_backbone(params, x, cfg, rules=None, *, positions, img_embeds,
+                  caches, mode):
     """``n_groups`` times: the gated cross-attention to the image tokens,
     then ``cross_attn_every`` self-attention decoder layers.  With caches,
     layer j of group g writes ``caches["k"][g, j]`` in place."""
     every = cfg.cross_attn_every
 
     def cross(x, xp):
-        return layers.cross_block(x, xp, cfg, kv_x=img_embeds,
+        return layers.cross_block(x, xp, cfg, rules, kv_x=img_embeds,
                                   positions=positions)
 
     def block(x, lp):
-        y, a, _ = layers.attn_block(x, lp, cfg, positions=positions)
+        y, a, _ = layers.attn_block(x, lp, cfg, rules, positions=positions)
         return y, a
 
     if mode == "train":
@@ -237,7 +256,7 @@ def _vlm_backbone(params, x, cfg, *, positions, img_embeds, caches, mode):
                 x, a = block(x, lp)
             else:
                 x, a, _ = layers.attn_block(
-                    x, lp, cfg, positions=positions,
+                    x, lp, cfg, rules, positions=positions,
                     cache=(caches["k"][g, j], caches["v"][g, j],
                            caches["len"]))
             aux = aux + a
@@ -247,25 +266,26 @@ def _vlm_backbone(params, x, cfg, *, positions, img_embeds, caches, mode):
                     "len": caches["len"] + x.shape[1]}
 
 
-def _encode_audio(params, frames, cfg):
+def _encode_audio(params, frames, cfg, rules=None):
     """The whisper encoder over the (stubbed) precomputed frame
     embeddings: learned positions, ``enc_layers`` non-causal attention
     blocks without RoPE, the final norm."""
     x = frames + params["enc_pos_embed"][None, :frames.shape[1]]
     for i in range(cfg.enc_layers):
         x, _, _ = layers.attn_block(x, _layer(params["enc_layers"], i), cfg,
-                                    positions=None, causal=False,
+                                    rules, positions=None, causal=False,
                                     use_rope=False)
     return layers.norm(x, params["ln_enc"], cfg)
 
 
-def _encdec_backbone(params, x, cfg, *, positions, enc_out, caches, mode):
+def _encdec_backbone(params, x, cfg, rules=None, *, positions, enc_out,
+                     caches, mode):
     """The whisper decoder: self-attention, cross-attention to
     ``enc_out`` and the MLP in each layer.  The new caches carry
     ``enc_out`` as computed (the executor's insert takes it to the
     batch cache's dtype)."""
     def block(x, lp):
-        return layers.encdec_block(x, lp, cfg, enc_out=enc_out,
+        return layers.encdec_block(x, lp, cfg, rules, enc_out=enc_out,
                                    positions=positions)[0]
 
     if mode == "train":
@@ -276,7 +296,7 @@ def _encdec_backbone(params, x, cfg, *, positions, enc_out, caches, mode):
             x = block(x, lp)
         else:
             x, _ = layers.encdec_block(
-                x, lp, cfg, enc_out=enc_out, positions=positions,
+                x, lp, cfg, rules, enc_out=enc_out, positions=positions,
                 cache=(caches["k"][i], caches["v"][i], caches["len"]))
     if caches is None:
         return x, _zero_aux(x), None
@@ -300,7 +320,8 @@ def _check_family(cfg: ModelConfig) -> None:
 
 def forward(params: Params, tokens, cfg: ModelConfig, *,
             aux_inputs: Optional[Mapping[str, torch.Tensor]] = None,
-            caches=None, mode: str = "train", return_hidden: bool = False):
+            caches=None, mode: str = "train", return_hidden: bool = False,
+            rules: Optional[ShardingRules] = None):
     """Returns (logits, moe_aux_loss, new_caches); the aux loss is a
     float32 0 outside the moe family.  ``aux_inputs`` holds the vlm's
     ``img_embeds`` (B, n_img_tokens, d) or the encdec's ``frames`` (B,
@@ -308,13 +329,26 @@ def forward(params: Params, tokens, cfg: ModelConfig, *,
     ``caches["enc_out"]`` instead.  With ``return_hidden`` the final-norm
     hidden states replace the logits (the streaming-CE path computes the
     LM head itself).  In ``mode="train"`` each block is checkpointed as
-    ``cfg.remat`` asks (:func:`_maybe_remat`).
+    ``cfg.remat`` asks (:func:`_maybe_remat`).  ``rules`` constrain the
+    activations on a mesh (``None``: one device).
 
     ``caches`` (from :func:`init_caches`) are updated in place: the
     returned dict holds the same K/V or SSD state tensors, the new conv
     windows of the ssm and hybrid families, the encdec's ``enc_out`` and
     a new length vector."""
     _check_family(cfg)
+    if isinstance(tokens, DTensor):
+        # on a mesh the few tensors the forward makes itself (positions,
+        # RoPE's angles, masks) join the DTensors as replicated
+        with implicit_replication():
+            return _forward(params, tokens, cfg, aux_inputs, caches, mode,
+                            return_hidden, rules)
+    return _forward(params, tokens, cfg, aux_inputs, caches, mode,
+                    return_hidden, rules)
+
+
+def _forward(params, tokens, cfg, aux_inputs, caches, mode, return_hidden,
+             rules):
     params = _cast(params, cfg)
     aux_inputs = aux_inputs or {}
     B, S = tokens.shape
@@ -324,36 +358,47 @@ def forward(params: Params, tokens, cfg: ModelConfig, *,
     else:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
 
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, rules)
     fam = cfg.family
     if fam == "encdec":
         x = x + params["pos_embed"][positions.long()]
     if fam in ("dense", "moe"):
-        x, aux, nc = _dense_backbone(params, x, cfg, positions=positions,
-                                     caches=caches, mode=mode)
+        x, aux, nc = _dense_backbone(params, x, cfg, rules,
+                                     positions=positions, caches=caches,
+                                     mode=mode)
     elif fam in ("ssm", "hybrid"):
-        x, aux, nc = _ssm_backbone(params, x, cfg, positions=positions,
-                                   caches=caches, mode=mode)
+        x, aux, nc = _ssm_backbone(params, x, cfg, rules,
+                                   positions=positions, caches=caches,
+                                   mode=mode)
     elif fam == "vlm":
         img = aux_inputs["img_embeds"].to(x.dtype)
-        x, aux, nc = _vlm_backbone(params, x, cfg, positions=positions,
-                                   img_embeds=img, caches=caches, mode=mode)
+        x, aux, nc = _vlm_backbone(params, x, cfg, rules,
+                                   positions=positions, img_embeds=img,
+                                   caches=caches, mode=mode)
     else:
         if caches is not None and mode == "decode":
             enc_out = caches["enc_out"]
         else:
             enc_out = _encode_audio(params, aux_inputs["frames"].to(x.dtype),
-                                    cfg)
-        x, aux, nc = _encdec_backbone(params, x, cfg, positions=positions,
-                                      enc_out=enc_out, caches=caches,
-                                      mode=mode)
+                                    cfg, rules)
+        x, aux, nc = _encdec_backbone(params, x, cfg, rules,
+                                      positions=positions, enc_out=enc_out,
+                                      caches=caches, mode=mode)
     if return_hidden:
         return layers.norm(x, params["ln_f"], cfg), aux, nc
-    return lm_head(params, x, cfg), aux, nc
+    return lm_head(params, x, cfg, rules), aux, nc
+
+
+def _token_ce(logits, targets):
+    """Each token's cross-entropy: logsumexp of its logits minus its
+    target's."""
+    logz = torch.logsumexp(logits, dim=-1)
+    return logz - torch.gather(logits, -1, targets[..., None].long())[..., 0]
 
 
 def loss_fn(params: Params, batch: Mapping[str, torch.Tensor],
-            cfg: ModelConfig, aux_weight: float = 0.01):
+            cfg: ModelConfig, aux_weight: float = 0.01,
+            rules: Optional[ShardingRules] = None):
     """Mean token cross-entropy of the training forward against
     ``batch["targets"]``, plus ``aux_weight`` times the MoE aux loss.
     The batch's other entries (``img_embeds``, ``frames``) are the
@@ -368,7 +413,8 @@ def loss_fn(params: Params, batch: Mapping[str, torch.Tensor],
                                                           "targets")}
     if cfg.use_streaming_ce:
         hidden, aux, _ = forward(params, tokens, cfg, aux_inputs=aux_in,
-                                 mode="train", return_hidden=True)
+                                 mode="train", return_hidden=True,
+                                 rules=rules)
         cparams = _cast(params, cfg)
         w = cparams["unembed"] if "unembed" in cparams \
             else cparams["embed"].T
@@ -380,11 +426,12 @@ def loss_fn(params: Params, batch: Mapping[str, torch.Tensor],
         ce = streaming_ce(hidden, w, targets, cfg.vocab, chunk)
     else:
         logits, aux, _ = forward(params, tokens, cfg, aux_inputs=aux_in,
-                                 mode="train")
+                                 mode="train", rules=rules)
         logits = logits.to(torch.float32)
-        logz = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-        ce = torch.mean(logz - tgt)
+        if isinstance(logits, DTensor):     # each rank's rows whole
+            ce = torch.mean(ops.rowwise(_token_ce, logits, targets))
+        else:
+            ce = torch.mean(_token_ce(logits, targets))
     loss = ce + aux_weight * aux
     return loss, {"ce": ce, "aux": aux,
                   "ppl": torch.exp(torch.clamp(ce, max=20.0))}

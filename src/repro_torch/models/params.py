@@ -2,10 +2,11 @@
 
 The port of ``repro.models.params`` for all six families (dense, moe,
 ssm, hybrid, vlm, encdec).  One table per architecture declares every
-parameter's shape and init scale; random initialization reads it, drawing
-from an explicit ``torch.Generator``.
-The reference's logical sharding axes are dropped: the port runs on one
-card.
+parameter's shape, logical sharding axes and init scale; random
+initialization reads it, drawing from an explicit ``torch.Generator``,
+and so do the ``meta``-device stand-ins of the dry-run
+(:func:`abstract_params`) and the mesh placements (:func:`param_pspecs`,
+:func:`param_placements`), so the three can never drift apart.
 
 :func:`params_from_jax` carries the reference's parameters (as numpy
 arrays) across, so both packages can run the same weights, and
@@ -22,14 +23,21 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..distributed.sharding import ShardingRules, logical_to_sharding
 from .config import ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]
     init: str = "normal"          # normal | zeros | ones | ssm_a | ssm_dt
     scale: Optional[float] = None  # None -> 1/sqrt(fan_in)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical):
+            raise ValueError(f"ParamDef: shape {self.shape} and logical "
+                             f"axes {self.logical} differ in length")
 
 
 ParamTree = Dict[str, object]   # nested dicts of ParamDef / tensors
@@ -82,13 +90,44 @@ def init_params(defs: ParamTree, generator: torch.Generator,
     return _map(lambda d: _init_leaf(generator, d, dtype).to(device), defs)
 
 
+def abstract_params(defs: ParamTree,
+                    dtype: torch.dtype = torch.float32) -> ParamTree:
+    """The parameters' shapes and dtype on the ``meta`` device: no
+    memory, the dry-run's stand-ins."""
+    return _map(lambda d: torch.empty(d.shape, dtype=dtype, device="meta"),
+                defs)
+
+
+def param_pspecs(defs: ParamTree, rules: ShardingRules) -> ParamTree:
+    """Per leaf, the mesh axes of each dim (the entries of the
+    reference's ``PartitionSpec``)."""
+    return _map(lambda d: rules.spec(*d.logical), defs)
+
+
+def param_placements(defs: ParamTree, mesh, rules: ShardingRules
+                     ) -> ParamTree:
+    """Per leaf, its DTensor placements on ``mesh`` (the counterpart of
+    the reference's ``param_shardings``)."""
+    return _map(lambda d: logical_to_sharding(mesh, rules, d.logical), defs)
+
+
+def _leaves(tree):
+    if isinstance(tree, Mapping):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def count_params(defs: ParamTree) -> int:
+    return int(sum(int(np.prod(d.shape)) for d in _leaves(defs)))
+
+
 # ---------------------------------------------------------------------------
 # per-family parameter tables
 # ---------------------------------------------------------------------------
 
 def _stack(n: int, d: ParamDef) -> ParamDef:
-    """Stack a per-layer def along a leading layer axis."""
-    return ParamDef((n,) + d.shape, d.init, d.scale)
+    """Stack a per-layer def along a leading (replicated) layer axis."""
+    return ParamDef((n,) + d.shape, (None,) + d.logical, d.init, d.scale)
 
 
 def _resid_scale(cfg: ModelConfig, fan_in: int) -> float:
@@ -103,10 +142,14 @@ def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     return {
         # explicit fan-in scales: the heuristic (shape[-2]) would read the
         # HEAD COUNT for these 3D projections, not d_model
-        "wq": ParamDef((d, H, hd), scale=1.0 / math.sqrt(d)),
-        "wk": ParamDef((d, KV, hd), scale=1.0 / math.sqrt(d)),
-        "wv": ParamDef((d, KV, hd), scale=1.0 / math.sqrt(d)),
-        "wo": ParamDef((H, hd, d), scale=_resid_scale(cfg, H * hd)),
+        "wq": ParamDef((d, H, hd), ("embed_fsdp", "heads", "head_dim"),
+                       scale=1.0 / math.sqrt(d)),
+        "wk": ParamDef((d, KV, hd), ("embed_fsdp", "kv_heads", "head_dim"),
+                       scale=1.0 / math.sqrt(d)),
+        "wv": ParamDef((d, KV, hd), ("embed_fsdp", "kv_heads", "head_dim"),
+                       scale=1.0 / math.sqrt(d)),
+        "wo": ParamDef((H, hd, d), ("heads", "head_dim", "embed_fsdp"),
+                       scale=_resid_scale(cfg, H * hd)),
     }
 
 
@@ -114,11 +157,12 @@ def mlp_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     """The MLP: gated (``w_gate``) for silu, not for gelu."""
     d, f = cfg.d_model, cfg.d_ff
     out = {
-        "w_up": ParamDef((d, f)),
-        "w_down": ParamDef((f, d), scale=_resid_scale(cfg, f)),
+        "w_up": ParamDef((d, f), ("embed_fsdp", "mlp")),
+        "w_down": ParamDef((f, d), ("mlp", "embed_fsdp"),
+                           scale=_resid_scale(cfg, f)),
     }
     if cfg.act == "silu":       # gated
-        out["w_gate"] = ParamDef((d, f))
+        out["w_gate"] = ParamDef((d, f), ("embed_fsdp", "mlp"))
     return out
 
 
@@ -126,10 +170,12 @@ def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     """The MoE FFN: a router and ``n_experts`` gated expert MLPs."""
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     return {
-        "router": ParamDef((d, E), scale=0.02),
-        "w_up": ParamDef((E, d, f)),
-        "w_gate": ParamDef((E, d, f)),
-        "w_down": ParamDef((E, f, d), scale=_resid_scale(cfg, f)),
+        "router": ParamDef((d, E), ("embed_fsdp", None), scale=0.02),
+        "w_up": ParamDef((E, d, f), ("experts", "embed_fsdp", "expert_mlp")),
+        "w_gate": ParamDef((E, d, f),
+                           ("experts", "embed_fsdp", "expert_mlp")),
+        "w_down": ParamDef((E, f, d), ("experts", "expert_mlp", "embed_fsdp"),
+                           scale=_resid_scale(cfg, f)),
     }
 
 
@@ -140,30 +186,31 @@ def mamba2_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     inner = cfg.ssm_inner
     H, N, G = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups
     return {
-        "w_z": ParamDef((d, inner)),
-        "w_x": ParamDef((d, inner)),
-        "w_B": ParamDef((d, G * N)),
-        "w_C": ParamDef((d, G * N)),
-        "w_dt": ParamDef((d, H)),
-        "conv_x_w": ParamDef((cfg.ssm_conv, inner)),
-        "conv_x_b": ParamDef((inner,), init="zeros"),
-        "conv_B_w": ParamDef((cfg.ssm_conv, G * N)),
-        "conv_B_b": ParamDef((G * N,), init="zeros"),
-        "conv_C_w": ParamDef((cfg.ssm_conv, G * N)),
-        "conv_C_b": ParamDef((G * N,), init="zeros"),
-        "A_log": ParamDef((H,), init="ssm_a"),
-        "dt_bias": ParamDef((H,), init="ssm_dt"),
-        "D": ParamDef((H,), init="ones"),
-        "norm_w": ParamDef((inner,), init="ones"),
-        "w_out": ParamDef((inner, d), scale=_resid_scale(cfg, inner)),
+        "w_z": ParamDef((d, inner), ("embed_fsdp", "conv_dim")),
+        "w_x": ParamDef((d, inner), ("embed_fsdp", "conv_dim")),
+        "w_B": ParamDef((d, G * N), ("embed_fsdp", None)),
+        "w_C": ParamDef((d, G * N), ("embed_fsdp", None)),
+        "w_dt": ParamDef((d, H), ("embed_fsdp", "ssm_heads")),
+        "conv_x_w": ParamDef((cfg.ssm_conv, inner), (None, "conv_dim")),
+        "conv_x_b": ParamDef((inner,), ("conv_dim",), init="zeros"),
+        "conv_B_w": ParamDef((cfg.ssm_conv, G * N), (None, None)),
+        "conv_B_b": ParamDef((G * N,), (None,), init="zeros"),
+        "conv_C_w": ParamDef((cfg.ssm_conv, G * N), (None, None)),
+        "conv_C_b": ParamDef((G * N,), (None,), init="zeros"),
+        "A_log": ParamDef((H,), ("ssm_heads",), init="ssm_a"),
+        "dt_bias": ParamDef((H,), ("ssm_heads",), init="ssm_dt"),
+        "D": ParamDef((H,), ("ssm_heads",), init="ones"),
+        "norm_w": ParamDef((inner,), ("conv_dim",), init="ones"),
+        "w_out": ParamDef((inner, d), ("conv_dim", "embed_fsdp"),
+                          scale=_resid_scale(cfg, inner)),
     }
 
 
 def _norm(cfg: ModelConfig) -> Dict[str, ParamDef]:
     """RMSNorm's weight, and LayerNorm's bias beside it."""
-    out = {"w": ParamDef((cfg.d_model,), init="ones")}
+    out = {"w": ParamDef((cfg.d_model,), ("d_model",), init="ones")}
     if cfg.norm == "layernorm":
-        out["b"] = ParamDef((cfg.d_model,), init="zeros")
+        out["b"] = ParamDef((cfg.d_model,), ("d_model",), init="zeros")
     return out
 
 
@@ -179,18 +226,20 @@ def block_defs(cfg: ModelConfig, kind: str = "attn") -> Dict[str, object]:
         return {"ln1": _norm(cfg), "mixer": mamba2_defs(cfg)}
     if kind == "cross":
         return {"ln": _norm(cfg), "xattn": attn_defs(cfg),
-                "gate": ParamDef((1,), init="zeros")}
+                "gate": ParamDef((1,), (None,), init="zeros")}
     raise ValueError(kind)
 
 
 def model_defs(cfg: ModelConfig) -> ParamTree:
     """Full parameter table for any of the six families."""
     out: ParamTree = {
-        "embed": ParamDef((cfg.padded_vocab, cfg.d_model), scale=0.02),
+        "embed": ParamDef((cfg.padded_vocab, cfg.d_model),
+                          ("vocab", "embed_fsdp"), scale=0.02),
         "ln_f": _norm(cfg),
     }
     if not cfg.tie_embeddings:
-        out["unembed"] = ParamDef((cfg.d_model, cfg.padded_vocab))
+        out["unembed"] = ParamDef((cfg.d_model, cfg.padded_vocab),
+                                  ("embed_fsdp", "vocab"))
 
     L = cfg.n_layers
     fam = cfg.family
@@ -210,7 +259,8 @@ def model_defs(cfg: ModelConfig) -> ParamTree:
         n_groups = L // every
         # self-attention decoder layers grouped (n_groups, every, ...)
         out["layers"] = _map(
-            lambda p: ParamDef((n_groups, every) + p.shape, p.init, p.scale),
+            lambda p: ParamDef((n_groups, every) + p.shape,
+                               (None, None) + p.logical, p.init, p.scale),
             block_defs(cfg, "attn"))
         out["cross"] = _map(lambda p: _stack(n_groups, p),
                             block_defs(cfg, "cross"))
@@ -222,9 +272,10 @@ def model_defs(cfg: ModelConfig) -> ParamTree:
         out["enc_layers"] = _map(lambda p: _stack(cfg.enc_layers, p),
                                  block_defs(cfg, "attn"))
         out["ln_enc"] = _norm(cfg)
-        out["pos_embed"] = ParamDef((4096, cfg.d_model), scale=0.02)
+        out["pos_embed"] = ParamDef((4096, cfg.d_model), (None, "d_model"),
+                                    scale=0.02)
         out["enc_pos_embed"] = ParamDef((cfg.enc_seq, cfg.d_model),
-                                        scale=0.02)
+                                        (None, "d_model"), scale=0.02)
     else:
         raise ValueError(f"unknown family {fam!r}")
     return out
@@ -267,5 +318,7 @@ def state_from_jax(state: Mapping, cfg: ModelConfig,
                                  dtype=torch.int32, device=device)}
 
 
-__all__ = ["ParamDef", "block_defs", "init_params", "mamba2_defs",
-           "model_defs", "moe_defs", "params_from_jax", "state_from_jax"]
+__all__ = ["ParamDef", "abstract_params", "block_defs", "count_params",
+           "init_params", "mamba2_defs", "model_defs", "moe_defs",
+           "param_placements", "param_pspecs", "params_from_jax",
+           "state_from_jax"]

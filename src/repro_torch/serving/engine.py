@@ -157,6 +157,11 @@ class ServingEngine:
         A :class:`~repro.serving.executor.BatchExecutor` override (the
         property harness passes a
         :class:`~repro.serving.executor.StubExecutor`).
+    rules / mesh:
+        Sharding rules for the default executor's model (the reference
+        takes ``rules`` third; here a keyword), and a one-device
+        :class:`DeviceMesh` to place its parameters and caches on
+        (:class:`~repro_torch.serving.executor.TorchExecutor`).
     """
 
     def __init__(self, cfg, params,
@@ -166,12 +171,13 @@ class ServingEngine:
                  scheduler: str = "continuous", page_tokens: int = 16,
                  kv_budget_bytes: Optional[int] = None,
                  executor: Optional[BatchExecutor] = None,
-                 prefill_bucket: int = 8, fusion: str = "flush"):
+                 prefill_bucket: int = 8, fusion: str = "flush",
+                 rules=None, mesh=None):
         if scheduler not in ("continuous", "fixed"):
             raise InvalidArgError(
                 f"scheduler must be 'continuous' or 'fixed', "
                 f"got {scheduler!r}")
-        self.cfg, self.params = cfg, params
+        self.cfg, self.params, self.rules = cfg, params, rules
         self.B, self.S = batch_slots, max_seq
         self.aux = aux_inputs or {}
         self.scheduler = scheduler
@@ -180,7 +186,8 @@ class ServingEngine:
             from .executor import TorchExecutor
             executor = TorchExecutor(cfg, params, batch_slots,
                                      max_seq, aux_inputs=aux_inputs,
-                                     prefill_bucket=prefill_bucket)
+                                     prefill_bucket=prefill_bucket,
+                                     rules=rules, mesh=mesh)
         if executor.batch_slots != batch_slots or \
                 executor.max_seq != max_seq:
             raise InvalidArgError(

@@ -28,13 +28,20 @@ the reference's.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
-from ..models.model import _cast, cache_logical_axes, forward, init_caches
+from ..distributed.sharding import (DECODE_RULES, implicit_replication,
+                                    logical_to_sharding, rules_for_model)
+from ..models.model import (_cast, cache_logical_axes, forward, init_caches,
+                            model_defs)
+from ..models.params import param_placements
+from ..training.tree import tree_map
 
 
 class BatchExecutor:
@@ -97,7 +104,12 @@ class TorchExecutor(BatchExecutor):
       so they never grow or attend.
 
     The model runs on the device its parameters are on, under
-    ``torch.inference_mode``.  ``aux_inputs`` (the vlm's ``img_embeds``,
+    ``torch.inference_mode``.  ``rules`` go to the model as the
+    reference's executor hands them on; with a ``mesh`` as well (a
+    :class:`DeviceMesh` of one device: caches cut over several wait for
+    ROADMAP A.14) the parameters, caches and tokens are DTensors placed by
+    the rules (by default ``DECODE_RULES`` adapted to the model), and
+    the kernels run on their local shards.  ``aux_inputs`` (the vlm's ``img_embeds``,
     the encdec's ``frames``; arrays or tensors with one row per slot) go
     to the device once; a prefill takes row ``slot`` of each, a decode
     step all of them, as the reference's executor does.  The
@@ -107,11 +119,24 @@ class TorchExecutor(BatchExecutor):
     """
 
     def __init__(self, cfg, params, batch_slots: int, max_seq: int,
-                 aux_inputs: Optional[Dict] = None, prefill_bucket: int = 8):
+                 aux_inputs: Optional[Dict] = None, prefill_bucket: int = 8,
+                 rules=None, mesh=None):
         self.cfg = cfg
         self.batch_slots, self.max_seq = batch_slots, max_seq
         self.device = params["embed"].device
         self.params = _cast(params, cfg)
+        self.rules, self.mesh = rules, mesh
+        if mesh is not None:
+            if mesh.size() > 1:
+                raise NotImplementedError(
+                    f"serving on a mesh of {mesh.size()} devices: KV caches "
+                    f"cut over devices (their in-place writes, decode "
+                    f"attention over a cut sequence) wait for ROADMAP A.14")
+            if rules is None:
+                self.rules = rules_for_model(cfg, mesh, DECODE_RULES)
+            self.params = tree_map(
+                self._distribute, self.params,
+                param_placements(model_defs(cfg), mesh, self.rules))
         self.aux = {k: torch.as_tensor(v, device=self.device)
                     for k, v in (aux_inputs or {}).items()}
         self.prefill_bucket = max(1, prefill_bucket)
@@ -119,6 +144,43 @@ class TorchExecutor(BatchExecutor):
         self._prefill_shapes: set = set()
         self._calls = {"prefill": 0, "decode": 0, "insert": 0}
         self._lock = threading.Lock()
+
+    def _distribute(self, t, placements):
+        return distribute_tensor(t, self.mesh, placements,
+                                 src_data_rank=None)
+
+    def _placed(self, tree, axes):
+        """``tree``'s tensors as DTensors by their logical ``axes`` on the
+        mesh (as they are without one)."""
+        if self.mesh is None:
+            return tree
+        return {k: self._distribute(v, logical_to_sharding(
+            self.mesh, self.rules, axes(k, v))) for k, v in tree.items()}
+
+    def _caches(self, batch: int):
+        return self._placed(
+            init_caches(self.cfg, batch, self.max_seq, device=self.device),
+            lambda k, v: self._axes[k])
+
+    def _inputs(self, tree):
+        return self._placed(
+            tree, lambda k, v: ("batch",) + (None,) * (v.dim() - 1))
+
+    def _run(self):
+        """The model's context: inference mode; on a mesh no-grad mode
+        (DTensor's in-place cache writes set version counters, which an
+        inference tensor has not) with the plain tensors the step makes
+        joining the DTensors as replicated."""
+        if self.mesh is None:
+            return torch.inference_mode()
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.no_grad())
+        stack.enter_context(implicit_replication())
+        return stack
+
+    @staticmethod
+    def _full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
 
     def _batch_axis(self, key: str) -> int:
         ax = self._axes.get(key)
@@ -128,8 +190,7 @@ class TorchExecutor(BatchExecutor):
 
     # -- interface -------------------------------------------------------------
     def init_state(self):
-        return init_caches(self.cfg, self.batch_slots, self.max_seq,
-                                 device=self.device)
+        return self._caches(self.batch_slots)
 
     def bucket(self, prompt_len: int) -> int:
         """Padded prefill length for a prompt (pow2, floored, capped)."""
@@ -145,21 +206,23 @@ class TorchExecutor(BatchExecutor):
         with self._lock:
             self._calls["prefill"] += 1
             self._prefill_shapes.add(padded)
-        with torch.inference_mode():
-            caches = init_caches(self.cfg, 1, self.max_seq,
-                                       device=self.device)
-            aux = {k: v[slot:slot + 1] for k, v in self.aux.items()}
+        with self._run():
+            caches = self._caches(1)
+            aux = self._inputs({k: v[slot:slot + 1]
+                                for k, v in self.aux.items()})
+            inp = self._inputs({"tokens": torch.from_numpy(toks)
+                                .to(self.device)})
             logits, _, caches = forward(
-                self.params, torch.from_numpy(toks).to(self.device),
-                self.cfg, aux_inputs=aux, caches=caches, mode="prefill")
-            tok = int(torch.argmax(logits[0, plen - 1]))
+                self.params, inp["tokens"], self.cfg, aux_inputs=aux,
+                caches=caches, mode="prefill", rules=self.rules)
+            tok = int(torch.argmax(self._full(logits)[0, plen - 1]))
             caches["len"] = torch.full_like(caches["len"], plen)
         return caches, tok
 
     def insert(self, state, fragment, slot: int):
         with self._lock:
             self._calls["insert"] += 1
-        with torch.inference_mode():
+        with self._run():
             for key, leaf in state.items():
                 ax = self._batch_axis(key)
                 leaf.select(ax, slot).copy_(
@@ -169,13 +232,14 @@ class TorchExecutor(BatchExecutor):
     def decode(self, state, tokens: np.ndarray, occupied: np.ndarray):
         with self._lock:
             self._calls["decode"] += 1
-        with torch.inference_mode():
-            toks = torch.as_tensor(np.asarray(tokens, np.int64),
-                                   device=self.device)[:, None]
-            logits, _, state = forward(self.params, toks, self.cfg,
-                                       aux_inputs=self.aux, caches=state,
-                                       mode="decode")
-            tok = torch.argmax(logits[:, -1], dim=-1)
+        with self._run():
+            toks = self._inputs({"tokens": torch.as_tensor(
+                np.asarray(tokens, np.int64), device=self.device)[:, None]})
+            logits, _, state = forward(self.params, toks["tokens"], self.cfg,
+                                       aux_inputs=self._inputs(self.aux),
+                                       caches=state, mode="decode",
+                                       rules=self.rules)
+            tok = torch.argmax(self._full(logits)[:, -1], dim=-1)
             occ = torch.as_tensor(np.asarray(occupied, bool),
                                   device=self.device)
             state["len"] = torch.where(occ, state["len"], 0)

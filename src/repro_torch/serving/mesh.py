@@ -154,6 +154,9 @@ class ServingMesh:
         The :class:`~repro_torch.runtime.platform.Platform` the replicas'
         devices come from (default: the card's, raising
         ``DeviceNotFoundError`` without one).
+    rules:
+        Sharding rules handed to every replica engine, or a list of them,
+        one per replica (as the reference's).
     engine_kwargs:
         Everything else (``batch_slots``, ``max_seq``, ``page_tokens``,
         ``kv_budget_bytes``, ``scheduler``, ...) is forwarded verbatim
@@ -165,10 +168,16 @@ class ServingMesh:
                  ewma_alpha: float = 0.5,
                  straggler_cfg: Optional[StragglerConfig] = None,
                  timer: Callable[[], float] = time.perf_counter,
-                 platform=None, **engine_kwargs):
+                 platform=None, rules=None, **engine_kwargs):
         if n_replicas < 1:
             raise InvalidArgError(
                 f"mesh needs >= 1 replica, got {n_replicas}")
+        self._rules = list(rules) if isinstance(rules, (list, tuple)) \
+            else [rules] * n_replicas
+        if len(self._rules) != n_replicas:
+            raise InvalidArgError(
+                f"{len(self._rules)} sharding rules for {n_replicas} "
+                f"replicas")
         self.platform = platform or default_platform()
         self._factory = executor_factory
         self._cfg, self._params = cfg, params
@@ -204,7 +213,7 @@ class ServingMesh:
         executor = self._factory(i) if self._factory is not None else None
         return ServingEngine(self._cfg, self._params, context=ctx,
                              device=dev, executor=executor,
-                             **self._engine_kwargs)
+                             rules=self._rules[i], **self._engine_kwargs)
 
     # ======================================================================
     # introspection

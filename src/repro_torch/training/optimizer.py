@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -64,11 +64,15 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptimizerConfig, params, grads, opt_state, step):
+def adamw_update(cfg: OptimizerConfig, params, grads, opt_state, step,
+                 gnorm: Optional[torch.Tensor] = None):
     """Returns (params, opt_state, metrics); ``params`` and the moments are
     updated in place and returned.  ``step`` is the step count before
-    this update (an int or an integer tensor)."""
-    gnorm = global_norm(grads)
+    this update (an int or an integer tensor).  ``gnorm``, the global
+    gradient norm, is computed from ``grads`` unless given (on a mesh the
+    trees are each rank's shards, and the norm is the whole gradient's)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     finite = torch.isfinite(gnorm)
     step = torch.as_tensor(step, device=gnorm.device)

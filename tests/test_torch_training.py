@@ -416,8 +416,10 @@ def test_failure_injection_and_restart_end_on_the_same_parameters(tmp_path):
 
 
 def test_trainer_takes_no_mesh_yet():
+    """A mesh that is not a ``DeviceMesh`` is refused; a real one trains
+    (``tests/test_torch_trainer_mesh.py``)."""
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(tcfg, TrainConfig(), mesh=object(), device="cpu")
 
 
